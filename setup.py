@@ -4,8 +4,18 @@ setup(
     name="pyfastani-tpu",
     version="0.1.0",
     description="TPU-native whole-genome ANI engine (FastANI method)",
-    packages=find_packages(include=["pyfastani_tpu", "pyfastani_tpu.*"]),
-    package_data={"pyfastani_tpu": ["py.typed", "**/*.pyi"]},
+    packages=find_packages(
+        include=[
+            "pyfastani_tpu",
+            "pyfastani_tpu.*",
+            "pyfastani_tpu_torch",
+            "pyfastani_tpu_torch.*",
+        ]
+    ),
+    package_data={
+        "pyfastani_tpu": ["py.typed", "**/*.pyi"],
+        "pyfastani_tpu_torch": ["csrc/*.cu"],
+    },
     ext_modules=[
         Extension(
             "pyfastani_tpu._native._native",
