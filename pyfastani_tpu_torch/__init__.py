@@ -3,8 +3,10 @@
 The same public API as ``pyfastani_tpu`` (the JAX package, which stays
 the reference): reference genomes go into a `Sketch`, `Sketch.index`
 returns a `Mapper`, and ``Mapper.query_genome`` / ``query_draft`` return
-`Hit`\\ s.  Queries run on one device through `session.Session`, whose L2
-chunk evaluator is a hand-written CUDA kernel (``csrc/l2_chunks.cu``).
+`Hit`\\ s.  Queries run through ``session.ShardedSession`` on a
+("data", "shard") device mesh (``parallel.mesh.make_mesh``; the
+`Mapper` uses its one-device case, ``session.Session``), whose L2 chunk
+evaluator is a hand-written CUDA kernel (``csrc/l2_chunks.cu``).
 
     >>> import pyfastani_tpu_torch as pyfastani
     >>> sketch = pyfastani.Sketch()            # device="cuda" by default

@@ -97,8 +97,8 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, i32,  # q, s_sizes, S
         ptr, ptr, ptr,  # mini_hash, mini_wpos, mini_prev
         ptr, ptr, ptr, ptr, ptr, i32,  # lo, rlen, frag, c0, clen, N
-        i32, i32,  # cmw, rmax
-        ptr, ptr, ptr, ptr,  # best, first, last, stream
+        i32, i32, i32, i32,  # cmw, rmax, M, F
+        ptr, ptr, ptr, ptr, ptr,  # best, first, last, range_bad, stream
     ]
     lib.l2_chunks_launch.restype = i32
     return lib

@@ -31,7 +31,9 @@ GBIG = 2**31 - 2**20
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device to run on: ``cuda`` by default, raising without a GPU."""
+    """The device to run on: ``cuda`` by default, raising without a GPU.
+    A CUDA device without an index gets the current one, so that one card
+    has one name."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -39,6 +41,8 @@ def resolve_device(device=None) -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain torch path on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

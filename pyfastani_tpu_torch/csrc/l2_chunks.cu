@@ -12,6 +12,9 @@
 //   * the chunk writes best = the largest count and first / last = the
 //     lowest / highest anchor position reaching it, or (-1, c0, c0) when
 //     it has no anchor.
+// A chunk whose range leaves [0, M) or whose fragment row is not in
+// [0, F) reads nothing: it writes (-1, c0, c0) and sets *range_bad to 1,
+// which the caller reads with the pass's other flags (no host sync here).
 //
 // What bounds it on the card: each chunk reads its range (three 4-byte
 // planes, up to rmax entries) with scattered starts across the index, and
@@ -63,9 +66,9 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
                  const int* __restrict__ mini_prev,
                  const int* __restrict__ lo_arr, const int* __restrict__ rlen_arr,
                  const int* __restrict__ frag_arr, const int* __restrict__ c0_arr,
-                 const int* __restrict__ clen_arr, int cmw, int rmax,
-                 int* __restrict__ best_out, int* __restrict__ first_out,
-                 int* __restrict__ last_out) {
+                 const int* __restrict__ clen_arr, int cmw, int rmax, int M,
+                 int F, int* __restrict__ best_out, int* __restrict__ first_out,
+                 int* __restrict__ last_out, int* __restrict__ range_bad) {
     extern __shared__ int smem[];
     __shared__ Best warp_best[kWarps];
 
@@ -74,11 +77,15 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
     const int c0 = c0_arr[i];
     const int clen = clen_arr[i];
     const int n = min(rlen_arr[i], rmax);
-    if (n <= 0 || clen <= 0) {
+    const int f = frag_arr[i];
+    const int64_t base = lo_arr[i];
+    const bool bad = base < 0 || base + max(n, 0) > M || f < 0 || f >= F;
+    if (bad || n <= 0 || clen <= 0) {
         if (tid == 0) {
             best_out[i] = -1;
             first_out[i] = c0;
             last_out[i] = c0;
+            if (bad) *range_bad = 1;  // every writer stores the same value
         }
         return;
     }
@@ -87,13 +94,11 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
     int* st = smem + sketch_words(S);  // interval start, +BIG if not in sketch
     int* pp = st + rmax;               // window position
 
-    const int f = frag_arr[i];
     const int s_eff = min(s_sizes[f], S);
     const uint32_t* qrow = q + static_cast<int64_t>(f) * S;
     for (int t = tid; t < s_eff; t += kThreads) qs[t] = qrow[t];
     __syncthreads();
 
-    const int64_t base = lo_arr[i];
     for (int j = tid; j < n; j += kThreads) {
         const uint32_t h = mini_hash[base + j];
         const int p = mini_wpos[base + j];
@@ -169,12 +174,15 @@ const char* l2_chunks_error_string(int err) {
 }
 
 // Launches one block per chunk on `stream`; returns cudaGetLastError().
+// `range_bad` is one int the caller zeroed; M is the store length and F
+// the number of sketch rows.
 int l2_chunks_launch(const void* q, const void* s_sizes, int S,
                      const void* mini_hash, const void* mini_wpos,
                      const void* mini_prev, const void* lo,
                      const void* rlen, const void* frag, const void* c0,
-                     const void* clen, int N, int cmw, int rmax, void* best,
-                     void* first, void* last, void* stream) {
+                     const void* clen, int N, int cmw, int rmax, int M, int F,
+                     void* best, void* first, void* last, void* range_bad,
+                     void* stream) {
     if (N <= 0) return 0;
     const long long smem = l2_chunks_smem_bytes(S, rmax);
     cudaError_t err = cudaFuncSetAttribute(
@@ -187,8 +195,9 @@ int l2_chunks_launch(const void* q, const void* s_sizes, int S,
         static_cast<const uint32_t*>(mini_hash), static_cast<const int*>(mini_wpos),
         static_cast<const int*>(mini_prev), static_cast<const int*>(lo),
         static_cast<const int*>(rlen), static_cast<const int*>(frag),
-        static_cast<const int*>(c0), static_cast<const int*>(clen), cmw, rmax,
-        static_cast<int*>(best), static_cast<int*>(first), static_cast<int*>(last));
+        static_cast<const int*>(c0), static_cast<const int*>(clen), cmw, rmax, M, F,
+        static_cast<int*>(best), static_cast<int*>(first), static_cast<int*>(last),
+        static_cast<int*>(range_bad));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -422,36 +422,33 @@ def _presize_budgets(sidx: ShardedIndex, params, overrides: dict) -> dict:
     )
 
 
-def index_to_device(sidx: ShardedIndex, device) -> dict:
-    """Park shard 0 of ``sidx`` on ``device`` as the query path's tensors.
+def index_to_device(sidx: ShardedIndex, device, shard: int = 0) -> dict:
+    """Park shard ``shard`` of ``sidx`` on ``device`` as the query path's
+    tensors.
 
     Hash planes become int32 tensors holding the uint32 bit patterns; the
     per-minimizer contig-id plane is not parked, because every L2 range is
     clamped to one contig's block through ``cof_idx`` (the first minimizer
     index of each contig).
     """
-    if sidx.n_shards != 1:
-        raise ValueError(
-            f"the port runs one shard on one device; index has {sidx.n_shards}"
-        )
 
     def put(a):
         # torch shares the numpy buffer first, so it must be writable
         return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
 
-    cof_idx = np.searchsorted(sidx.mini_gpos[0], sidx.contig_offset[0]).astype(np.int32)
+    cof_idx = np.searchsorted(sidx.mini_gpos[shard], sidx.contig_offset[shard]).astype(np.int32)
     return dict(
-        uniq_hash=put(bits_to_i32(sidx.uniq_hash[0])),
-        row_start=put(sidx.row_start[0]),
-        row_len=put(sidx.row_len[0]),
-        post_gpos=put(sidx.post_gpos[0]),
-        mini_hash=put(bits_to_i32(sidx.mini_hash[0])),
-        mini_wpos=put(sidx.mini_wpos[0]),
-        mini_gpos=put(sidx.mini_gpos[0]),
-        mini_prev=put(sidx.mini_prev[0]),
-        contig_offset=put(sidx.contig_offset[0]),
+        uniq_hash=put(bits_to_i32(sidx.uniq_hash[shard])),
+        row_start=put(sidx.row_start[shard]),
+        row_len=put(sidx.row_len[shard]),
+        post_gpos=put(sidx.post_gpos[shard]),
+        mini_hash=put(bits_to_i32(sidx.mini_hash[shard])),
+        mini_wpos=put(sidx.mini_wpos[shard]),
+        mini_gpos=put(sidx.mini_gpos[shard]),
+        mini_prev=put(sidx.mini_prev[shard]),
+        contig_offset=put(sidx.contig_offset[shard]),
         cof_idx=put(cof_idx),
-        seq_to_genome=put(sidx.seq_to_genome[0]),
-        hash_bucket=put(sidx.hash_bucket[0]),
-        gpos_bucket=put(sidx.gpos_bucket[0]),
+        seq_to_genome=put(sidx.seq_to_genome[shard]),
+        hash_bucket=put(sidx.hash_bucket[shard]),
+        gpos_bucket=put(sidx.gpos_bucket[shard]),
     )

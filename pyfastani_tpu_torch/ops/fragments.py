@@ -1,11 +1,16 @@
-"""Batched fragment winnowing and sketch construction.
+"""Batched fragment winnowing and sketch construction, and the chunked
+winnow of long sequences.
 
-Port of ``pyfastani_tpu/ops/fragments.py::_winnow_fragments_impl``: every
-query fragment of a dispatch is winnowed in one batch (the fragment axis
-is the leading dimension, where the JAX package ``vmap``s), then each
-fragment's recorded minimizer hashes are sorted and compacted to its
-sketch -- the sorted unique hashes, ``UMAX``-padded.  All outputs are
-integers, so the port and the JAX package agree bitwise.
+Port of ``pyfastani_tpu/ops/fragments.py``.  `winnow_fragments`
+(``_winnow_fragments_impl``): every query fragment of a dispatch is
+winnowed in one batch (the fragment axis is the leading dimension, where
+the JAX package ``vmap``s), then each fragment's recorded minimizer hashes
+are sorted and compacted to its sketch -- the sorted unique hashes,
+``UMAX``-padded.  `winnow_long_sequence`: a whole contig is winnowed on
+the device in fixed-size chunks of windows with the boundary state
+carried between them, in the 1-D form (the JAX package's ``(R, 128)``
+layout is a TPU tiling workaround).  All outputs are integers, so the
+port and the JAX package agree bitwise.
 """
 
 from __future__ import annotations
@@ -13,9 +18,11 @@ from __future__ import annotations
 import torch
 
 from .._common import UMAX
-from .winnow import nucl_canonical, prot_hashes, winnow
+from .winnow import nucl_canonical, prot_hashes, winnow, winnow_chunk
 
-__all__ = ["winnow_fragments"]
+__all__ = ["winnow_fragments", "winnow_long_sequence"]
+
+_CHUNK_WINDOWS = 1 << 21  # windows winnowed per chunk
 
 
 def winnow_fragments(
@@ -50,3 +57,76 @@ def winnow_fragments(
     s = first.sum(dim=1).to(torch.int32)
     rec_ovf = (s > kc).any()
     return rec_ovf, q_sorted[:, : min(kc, q_sorted.shape[1])], s
+
+
+def _compact(record, rank, values, cap: int):
+    """The ``values`` where ``record`` holds, in order, in a ``(cap,)``
+    buffer (``rank`` is the inclusive cumsum of ``record``); records past
+    ``cap`` land in a dump slot that is cut off."""
+    tgt = torch.where(record & (rank <= cap), rank - 1, cap)
+    out = torch.zeros(cap + 1, dtype=values.dtype, device=values.device)
+    return out.scatter_(0, tgt, values)[:cap]
+
+
+def winnow_long_sequence(
+    data: torch.Tensor, k: int, w: int, protein: bool, chunk: int | None = None
+):
+    """Winnow one long sequence on its device, ``chunk`` windows at a time.
+
+    Args:
+        data: ``(n,)`` uint8 uppercased sequence on the device.
+        k, w: k-mer and window size.
+        protein: forward-only hashing.
+        chunk: windows per chunk (default ``2**21``); any size works, also
+            one smaller than ``w``.
+
+    Returns:
+        ``(hashes, wpos)`` on the device: int64 hashes in ``[0, 2^32)`` and
+        int32 window positions, equal to the host ``winnow_sequence``.
+
+    Each chunk's records are compacted on the device (cumsum + scatter)
+    into a buffer sized twice the expected minimizer density; the count
+    is the one host read per chunk, and a denser chunk is compacted again
+    into a buffer that fits.
+    """
+    dev = data.device
+    n = int(data.shape[0])
+    n_pos = n - k + 1
+    n_windows = n_pos - w + 1
+    if n_pos < 1 or n_windows < 1:
+        return (
+            torch.zeros(0, dtype=torch.int64, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev),
+        )
+    B = chunk or _CHUNK_WINDOWS
+    N = B + w - 1  # k-mer positions the chunk's windows read
+    L = N + k - 1 + 4  # bytes, with the hashes' padding
+    # minimizer density is ~2/(w+1): the buffer holds twice that
+    density = -(-4 * B // (w + 1))
+    cap = max(1024, -(-density // 128) * 128)
+    hashes = prot_hashes if protein else nucl_canonical
+
+    def zero(dtype):
+        return torch.zeros((), dtype=dtype, device=dev)
+
+    carry = (zero(torch.bool), zero(torch.int64), zero(torch.bool), zero(torch.int64))
+    out_h, out_p = [], []
+    for base in range(0, n_windows, B):
+        piece = torch.zeros(L, dtype=torch.uint8, device=dev)
+        avail = data[base : base + L]
+        piece[: avail.shape[0]] = avail
+        canon, valid = hashes(piece[None], n - base, k, N)
+        record, win_h, carry = winnow_chunk(canon[0], valid[0], w, carry, base, base == 0)
+        rank = torch.cumsum(record, dim=0)
+        wpos = base + torch.arange(B, dtype=torch.int32, device=dev)
+        chunk_cap = cap
+        while True:
+            h = _compact(record, rank, win_h, chunk_cap)
+            p = _compact(record, rank, wpos, chunk_cap)
+            count = int(rank[-1])
+            if count <= chunk_cap:
+                break
+            chunk_cap = -(-count // 128) * 128  # pathologically dense: retry bigger
+        out_h.append(h[:count])
+        out_p.append(p[:count])
+    return torch.cat(out_h), torch.cat(out_p)

@@ -14,7 +14,10 @@ without changing their union).  The shared count at a record anchor
 ``a`` -- a range position with ``c0 <= p_a < c0 + clen`` -- is the number
 of intervals that contain ``p_a``.  A chunk outputs ``best``, the largest
 count, and ``first``/``last``, the lowest and highest anchor that reach
-it; with no anchor the output is ``(-1, c0, c0)``.
+it; with no anchor the output is ``(-1, c0, c0)``.  A chunk whose range
+leaves the store or whose fragment row does not exist is read as empty and
+raises the returned range flag, which the caller reads with the pass's
+other flags: the check costs no host sync.
 
 `l2_chunks` launches the hand-written CUDA kernel
 (``csrc/l2_chunks.cu``) for CUDA tensors and takes the plain version,
@@ -107,22 +110,14 @@ def _check_operands(q_sorted, s_sizes, planes, chunks):
         raise ValueError("minimizer planes / chunk arrays differ in length")
 
 
-def _check_ranges(q_sorted, lo, rlen, frag, M: int, rmax: int):
-    """Every range the kernel reads lies in ``[0, M)`` and every fragment
-    row exists (one device sync)."""
-    if lo.shape[0] == 0:
-        return
-    end = lo.to(torch.int64) + rlen.clamp(0, rmax)
-    bad = (lo < 0) | (end > M) | (frag < 0) | (frag >= q_sorted.shape[0])
-    if bool(bad.any()):
-        raise ValueError(f"a chunk's range leaves [0, {M}) or its fragment row is missing")
-
-
 def l2_chunks(
     q_sorted, s_sizes, mini_hash, mini_wpos, mini_prev,
     lo, rlen, frag, c0, clen, cmw: int, rmax: int,
 ):
-    """``(best, first, last)`` of every chunk, as ``(N,)`` int32 tensors.
+    """``(best, first, last, range_bad)``: the first three ``(N,)`` int32
+    per chunk, and a 0-d int32 flag that is 1 when some chunk's range
+    leaves ``[0, M)`` or its fragment row is not in ``[0, F)``; such a
+    chunk is not read and gives ``(-1, c0, c0)``.
 
     Args:
         q_sorted: ``(F, S)`` int64 sorted sketches (``UMAX`` pad).
@@ -149,7 +144,6 @@ def l2_chunks(
     dev = q_sorted.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"l2_chunks runs on cuda or cpu tensors, got {dev}")
-    _check_ranges(q_sorted, lo, rlen, frag, mini_hash.shape[0], rmax)
     if dev.type == "cpu":
         return l2_chunks_reference(
             q_sorted, s_sizes, mini_hash, mini_wpos, mini_prev,
@@ -174,22 +168,26 @@ def l2_chunks(
     best = torch.empty(N, dtype=torch.int32, device=dev)
     first = torch.empty_like(best)
     last = torch.empty_like(best)
+    range_bad = torch.zeros(1, dtype=torch.int32, device=dev)
     if N == 0:
-        return best, first, last
+        return best, first, last, range_bad[0]
     # the kernel reads sketches as uint32: int32 tensors with the same bits
     ops = [hash_to_i32(q_sorted), s_sizes, mini_hash, mini_wpos, mini_prev]
     ops = [t.contiguous() for t in ops + [lo, rlen, frag, c0, clen]]
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in ops]
-    out_ptr = [ctypes.c_void_p(t.data_ptr()) for t in (best, first, last)]
+    out_ptr = [ctypes.c_void_p(t.data_ptr()) for t in (best, first, last, range_bad)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    M, F = mini_hash.shape[0], q_sorted.shape[0]
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.l2_chunks_launch(*ptr[:2], S, *ptr[2:], N, cmw, rmax, *out_ptr, stream)
+        err = lib.l2_chunks_launch(
+            *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr, stream
+        )
     if err != 0:
         raise RuntimeError(
             f"l2_chunks kernel launch failed: {lib.l2_chunks_error_string(err).decode()}"
         )
     launches += 1
-    return best, first, last
+    return best, first, last, range_bad[0]
 
 
 def l2_chunks_reference(
@@ -202,7 +200,7 @@ def l2_chunks_reference(
     membership with ``torch.searchsorted`` and counts the intervals that
     contain each anchor with two searches over the sorted interval
     endpoints: ``#{start_j <= p_a} - #{p_j < p_a}``.  Chunks with an empty
-    range never reach the gather.
+    range, and chunks that raise the range flag, never reach the gather.
     """
     global reference_calls
     reference_calls += 1
@@ -216,9 +214,12 @@ def l2_chunks_reference(
     first = c0_64.clone()
     last = c0_64.clone()
     n_all = rlen.to(i64).clamp(0, rmax)
-    live = torch.nonzero((n_all > 0) & (clen > 0)).reshape(-1)
-    if live.numel() == 0 or M == 0:
-        return best.to(torch.int32), first.to(torch.int32), last.to(torch.int32)
+    lo64 = lo.to(i64)
+    bad = (lo64 < 0) | (lo64 + n_all > M) | (frag < 0) | (frag >= q_sorted.shape[0])
+    range_bad = bad.any().to(torch.int32)
+    live = torch.nonzero((n_all > 0) & (clen > 0) & ~bad).reshape(-1)
+    if live.numel() == 0:
+        return best.to(torch.int32), first.to(torch.int32), last.to(torch.int32), range_bad
     R = int(n_all[live].max())
     B = max(1, _REF_SLAB_ELEMS // R)
     j = torch.arange(R, device=dev)[None, :]
@@ -226,7 +227,7 @@ def l2_chunks_reference(
         ids = live[s0 : s0 + B]
         n = n_all[ids]
         valid = j < n[:, None]
-        gidx = (lo[ids].to(i64)[:, None] + j).clamp(0, M - 1)
+        gidx = (lo64[ids][:, None] + j).clamp(0, M - 1)
         rh = i32_to_hash(mini_hash[gidx])
         rp = mini_wpos[gidx].to(i64)
         rv = mini_prev[gidx].to(i64)
@@ -254,4 +255,4 @@ def l2_chunks_reference(
         best[ids] = b
         first[ids] = torch.where(none, cc0[:, 0], f)
         last[ids] = torch.where(none, cc0[:, 0], t)
-    return best.to(torch.int32), first.to(torch.int32), last.to(torch.int32)
+    return best.to(torch.int32), first.to(torch.int32), last.to(torch.int32), range_bad

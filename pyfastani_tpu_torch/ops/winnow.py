@@ -1,7 +1,9 @@
 """Batched minimizer winnowing (``skch::CommonFunc::addMinimizers``).
 
 Port of ``pyfastani_tpu/ops/winnow.py`` (`nucl_canonical`, `prot_hashes`,
-`winnow`) with the fragment axis as an explicit leading batch dimension.
+`winnow`, `winnow_chunk`); `winnow` takes the fragment axis as an explicit
+leading batch dimension, and `winnow_chunk` winnows one chunk of a long
+sequence with the boundary state carried from the chunk before.
 The observable semantics are the JAX package's, which it documents in
 full: palindromic k-mers are skipped, the canonical hash is
 ``min(fwd, bwd)``, window minima break ties to the latest position, a
@@ -12,6 +14,8 @@ window-0 suppression quirk is reproduced.  Hashes are int64 in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pyfastani_tpu.ops.codec import complement_table
@@ -19,7 +23,14 @@ from pyfastani_tpu.ops.codec import complement_table
 from .._common import UMAX
 from .murmur3 import kmer_hashes
 
-__all__ = ["nucl_canonical", "prot_hashes", "winnow"]
+__all__ = ["nucl_canonical", "prot_hashes", "winnow", "winnow_chunk"]
+
+
+@functools.cache
+def _complement_lut(device: torch.device) -> torch.Tensor:
+    """The complement table on ``device``, copied there once: a copy per
+    call would make every query pass wait for the device."""
+    return torch.from_numpy(complement_table()).to(device)
 
 
 def nucl_canonical(data: torch.Tensor, n: int, k: int, n_positions: int):
@@ -40,8 +51,7 @@ def nucl_canonical(data: torch.Tensor, n: int, k: int, n_positions: int):
     hash with the same rolling-word code and one flip.
     """
     L_pad = data.shape[-1]
-    table = torch.from_numpy(complement_table()).to(data.device)
-    crev = table[data.to(torch.int64)].flip(-1)
+    crev = _complement_lut(data.device)[data.to(torch.int64)].flip(-1)
     fwd = kmer_hashes(data, k, out_len=n_positions)
     rr = kmer_hashes(crev, k, out_len=L_pad - k + 1)
     bwd = rr.flip(-1)[..., :n_positions]
@@ -72,6 +82,27 @@ def _pair_min(h_a, p_a, h_b, p_b):
     return torch.where(take_b, h_b, h_a), torch.where(take_b, p_b, p_a)
 
 
+def _window_min(canon, valid, pos, w: int):
+    """``(hash, pos)`` minimum of every ``w``-wide window along the last
+    axis (``N - w + 1`` windows), ties to the later position."""
+    g_h = torch.where(valid, canon, UMAX)
+    # invalid entries carry pos 0 so a real UMAX-valued hash beats them
+    g_p = torch.where(valid, pos, 0)
+    # sliding minimum by log doubling: g covers windows of size `size`
+    size = 1
+    while size * 2 <= w:
+        g_h, g_p = _pair_min(
+            g_h, g_p, _shift_left(g_h, size, UMAX), _shift_left(g_p, size, 0)
+        )
+        size *= 2
+    rem = w - size
+    win_h, win_p = _pair_min(
+        g_h, g_p, _shift_left(g_h, rem, UMAX), _shift_left(g_p, rem, 0)
+    )
+    P = canon.shape[-1] - w + 1
+    return win_h[..., :P], win_p[..., :P]
+
+
 def winnow(canon: torch.Tensor, valid: torch.Tensor, w: int):
     """Evaluate every window and flag which ones record a minimizer.
 
@@ -93,24 +124,7 @@ def winnow(canon: torch.Tensor, valid: torch.Tensor, w: int):
             torch.zeros((B, 0), dtype=torch.int64, device=dev),
         )
 
-    pos = torch.arange(N, device=dev)
-    g_h = torch.where(valid, canon, UMAX)
-    # invalid entries carry pos 0 so a real UMAX-valued hash beats them
-    g_p = torch.where(valid, pos, 0)
-
-    # sliding minimum by log doubling: g covers windows of size `size`
-    size = 1
-    while size * 2 <= w:
-        g_h, g_p = _pair_min(
-            g_h, g_p, _shift_left(g_h, size, UMAX), _shift_left(g_p, size, 0)
-        )
-        size *= 2
-    rem = w - size
-    win_h, win_p = _pair_min(
-        g_h, g_p, _shift_left(g_h, rem, UMAX), _shift_left(g_p, rem, 0)
-    )
-    win_h = win_h[:, :P]
-    win_p = win_p[:, :P]
+    win_h, win_p = _window_min(canon, valid, torch.arange(N, device=dev), w)
 
     # window p is evaluated iff its last k-mer (p + w - 1) is valid
     evaluated = valid[:, w - 1 : w - 1 + P]
@@ -138,3 +152,62 @@ def winnow(canon: torch.Tensor, valid: torch.Tensor, w: int):
     prefix_ok = torch.cummin(same_h0.to(torch.int32), dim=1).values.bool()
     suppress = first_is_zero & (idx > 0) & prefix_ok
     return is_new & ~suppress, win_h
+
+
+def winnow_chunk(canon, valid, w: int, carry, base: int, first_chunk: bool):
+    """Winnow the windows ``[base, base + P)`` of one long sequence.
+
+    Args:
+        canon, valid: ``(P + w - 1,)`` hashes and validity of the k-mers
+            at positions ``[base, base + P + w - 1)``.
+        w: window size.
+        carry: 0-d tensors ``(has_prev, prev_pos, phantom, h0)`` from the
+            chunk before: whether an evaluated window came before, the
+            position it chose (global), whether the window-0 suppression
+            quirk is still active, and the hash it compares against.
+        base: global position of the chunk's first window.
+        first_chunk: the chunk holds window 0, where the quirk anchors.
+
+    Returns:
+        ``(record, win_hash, carry)``: ``(P,)`` flags and hashes of the
+        chunk's windows (window ``base + p`` appends
+        ``(win_hash[p], base + p)`` iff ``record[p]``) and the carry for
+        the next chunk.  Nothing here waits for the device.
+    """
+    has_prev, prev_pos, phantom, h0 = carry
+    dev = canon.device
+    N = canon.shape[0]
+    P = N - w + 1
+    pos = base + torch.arange(N, device=dev)
+    win_h, win_p = _window_min(canon, valid, pos, w)
+    evaluated = valid[w - 1 : w - 1 + P]
+
+    # the previous evaluated window: in the chunk, or carried across.  A
+    # chunk is one long row, where torch's cummax/cummin scan serially, so
+    # both scans are cumsums: the last evaluated window up to p is the
+    # count(p)-th one, found through a scatter of each one's index
+    idx = torch.arange(P, device=dev)
+    count = torch.cumsum(evaluated, dim=0)
+    nth = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    nth.scatter_(0, torch.where(evaluated, count - 1, P), idx)
+    last = torch.where(count > 0, nth[(count - 1).clamp(min=0)], -1)
+    prev_in = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev), last[:-1]])
+    first_eval = prev_in < 0
+    prev_pos_eff = torch.where(first_eval, prev_pos, win_p[prev_in.clamp(min=0)])
+    have_prev = ~first_eval | has_prev
+    is_new = evaluated & (~have_prev | (win_p != prev_pos_eff))
+
+    # the window-0 suppression quirk, carried while every evaluated window
+    # since window 0 carried hash h0
+    if first_chunk:
+        phantom, h0 = evaluated[0], win_h[0]
+    same_h0 = ~evaluated | (win_h == h0)
+    prefix_ok = torch.cumsum(~same_h0, dim=0) == 0
+    suppress = phantom & prefix_ok
+    if first_chunk:
+        suppress = suppress & (idx > 0)  # window 0 itself records
+    record = is_new & ~suppress
+
+    any_eval = last[-1] >= 0
+    new_prev = torch.where(any_eval, win_p[last[-1].clamp(min=0)], prev_pos)
+    return record, win_h, (has_prev | any_eval, new_prev, phantom & prefix_ok[-1], h0)

@@ -1,17 +1,28 @@
-"""Batched query session on one device: the port of ``ShardedSession``.
+"""Batched query sessions: the port of ``ShardedSession``.
 
-The reference index is parked on the device once; every query genome is
-cut into ``l``-long fragments, and groups of query genomes run through one
-device pass each (`_query_block`), which has four stages:
+The reference index is split by genome over the ``shard`` axis of a
+`parallel.mesh.Mesh` and parked once on the devices of each mesh column.
+Every query genome is cut into ``l``-long fragments, and groups of query
+genomes run through one pass each.  A pass splits the group's fragment
+block over the ``data`` axis and runs `_query_block` on every cell, which
+has four stages:
 
 1. the batched fragment winnow and sketch (`ops.fragments`);
 2. the L1 candidate intervals (`ops.l1`);
 3. the L2 chunk sweep (`_l2_interval_scan`), whose per-chunk evaluator is
    `ops.l2.l2_chunks` -- the CUDA kernel on the GPU;
-4. the identity gate, the two CGI reductions and an exact fixed-point
-   identity fold per query genome (`_fold`).
+4. the identity gate and the two CGI reductions.
 
-Budgets are static and pre-sized from index statistics
+The cells' per-bin best identities merge by an elementwise max over the
+data rows of each shard (the JAX package's ``pmax``; across processes one
+``all_reduce(MAX)``), and an exact fixed-point identity fold (`_fold`)
+reduces each shard to per-genome sums.
+
+Passes are pipelined: fragments stage into two recycled host slots
+(pinned for CUDA devices) and copy to the devices without blocking, no
+operation inside a pass waits for the device, and the outputs of every
+group are read back behind one event at the end of an attempt.  Budgets
+are static and pre-sized from index statistics
 (`index._presize_budgets`); an overflow is flagged on the device, and the
 session doubles the budget and runs the batch again.  Every output is an
 integer and the identity mean is an exact fixed-point sum, so hits equal
@@ -19,8 +30,7 @@ the JAX package's and the host NumPy engine's bitwise.
 
 Port of ``pyfastani_tpu/parallel/sharded.py`` (`_bucketed_gpos_search`,
 `_l2_interval_scan` in the structure of its ``use_pallas`` branch,
-`_query_block_impl`, the fold of ``block_fn`` and ``ShardedSession``) for
-one shard on one device.
+`_query_block_impl`, the fold of ``block_fn`` and ``ShardedSession``).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from pyfastani_tpu.models._types import Hit
 from pyfastani_tpu.ops import codec
 
 from ._common import BIG, resolve_device
+from .parallel.mesh import Mesh, make_mesh
 from .index import (
     ShardedIndex,
     _l2_kernel_rows,
@@ -50,12 +61,13 @@ from .ops.fragments import winnow_fragments
 from .ops.l1 import l1_candidates
 from .ops.l2 import l2_chunks
 
-__all__ = ["Session"]
+__all__ = ["ShardedSession", "Session"]
 
 _CH_SLAB = 256  # the chunk budget is a multiple of this
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 _BUDGET_NAMES = ["smax", "hmax", "ivmax", "t_chunks", "rmax"]
+_N_FLAGS = len(_BUDGET_NAMES) + 1  # the budget overflows, then the L2 range flag
 
 
 def _segment(values, seg, n_seg: int, reduce: str, identity):
@@ -85,7 +97,8 @@ def _l2_interval_scan(
     q_sorted, s_sizes, frag_of_iv, iv_seq, iv_c0, iv_c1, iv_valid, idx,
     gpos_shift: int, gpos_steps: int, cmw: int, cmax: int, rmax: int, ch_max: int,
 ):
-    """``(best, first, last, ovf_chunks, ovf_r)`` per candidate interval.
+    """``(best, first, last)`` per candidate interval, and the flags
+    ``(ovf_chunks, ovf_r, range_bad)``.
 
     Intervals are cut into chunks of at most ``cmax`` window offsets,
     compacted to the front of a ``ch_max``-slot axis.  Each chunk's range
@@ -134,7 +147,7 @@ def _l2_interval_scan(
     rlen = rlen.clamp(0, R - 128)
 
     i32 = torch.int32
-    cbest, cfirst, clast = l2_chunks(
+    cbest, cfirst, clast, range_bad = l2_chunks(
         q_sorted, s_sizes, idx["mini_hash"], idx["mini_wpos"], idx["mini_prev"],
         lo.to(i32), rlen.to(i32), ch_frag.to(i32), ch_c0.to(i32), ch_len.to(i32),
         cmw, R - 128,
@@ -147,7 +160,7 @@ def _l2_interval_scan(
     first = _segment(torch.where(is_best, cfirst, BIG), seg, NI + 1, "amin", _I32_MAX)[:NI]
     last = _segment(torch.where(is_best, clast, -BIG), seg, NI + 1, "amax", _I32_MIN)[:NI]
     best = torch.where(iv_valid & (n_ch > 0), best, -1)
-    return best, first, last, overflow, rovf
+    return best, first, last, overflow, rovf, range_bad
 
 
 def _query_block(
@@ -162,10 +175,11 @@ def _query_block(
 
     ``frag_qg`` assigns each fragment row to one of ``q_count`` query
     genomes, so a group of genomes maps in one pass.  Returns
-    ``(best_bin, ovf_vec)``: the ``(q_count * C * bin_max,)`` float32 best
+    ``(best_bin, flags)``: the ``(q_count * C * bin_max,)`` float32 best
     identity per (query genome, contig, bin) after the reciprocal filter,
-    and the five 0/1 budget overflow flags (smax, hmax, ivmax, t_chunks,
-    rmax).
+    and six 0/1 int32 flags: the budget overflows (smax, hmax, ivmax,
+    t_chunks, rmax), then the L2 range flag (`ops.l2.l2_chunks`).  No
+    operation waits for the device.
     """
     dev = frags.device
     i64 = torch.int64
@@ -194,14 +208,16 @@ def _query_block(
     iv_c0 = torch.maximum(g0f, iv_base) - iv_base
     iv_c1 = g1f - iv_base
 
-    frag_of_iv = torch.arange(F, device=dev).repeat_interleave(ivmax)
+    frag_of_iv = torch.arange(F * ivmax, device=dev) // ivmax
     ch_max = _round_up(F * t_chunks, _CH_SLAB)
     iv_valid = iv_valid.reshape(-1)
-    best, first, last, ovf_ch, ovf_r = _l2_interval_scan(
+    best, first, last, ovf_ch, ovf_r, range_bad = _l2_interval_scan(
         q_sorted, s_sizes, frag_of_iv, iv_seq, iv_c0, iv_c1, iv_valid, idx,
         gpos_shift, gpos_steps, cmw, cmax, rmax, ch_max,
     )
-    ovf_vec = torch.stack([s_overflow, ovf_hits, ovf_iv, ovf_ch, ovf_r]).to(torch.int32)
+    flags = torch.stack(
+        [f.to(torch.int32) for f in (s_overflow, ovf_hits, ovf_iv, ovf_ch, ovf_r, range_bad)]
+    )
 
     s_iv = s_sizes[frag_of_iv].to(i64)
     gate = gate_table[s_iv.clamp(0, gate_table.shape[0] - 1)]
@@ -224,8 +240,7 @@ def _query_block(
     iv_arange = torch.arange(NIV, device=dev)
     n_seg = F * (g_max + 1) + g_max + 1
     fg = frag_of_iv * (g_max + 1) + torch.where(mapped, gid, g_max)
-    neg = torch.tensor(-1.0, dtype=torch.float32, device=dev)
-    best_fg = _segment(torch.where(mapped, ident, neg), fg, n_seg, "amax", -np.inf)
+    best_fg = _segment(torch.where(mapped, ident, -1.0), fg, n_seg, "amax", -np.inf)
     tied = mapped & (ident == best_fg[fg])
     first_iv = _segment(torch.where(tied, iv_arange, NIV), fg, n_seg, "amin", _I32_MAX)
     keep1 = tied & (iv_arange == first_iv[fg])
@@ -234,8 +249,8 @@ def _query_block(
     qg_of_iv = frag_qg[frag_of_iv].to(i64)
     n_bins = q_count * C * bin_max
     cbin = torch.where(keep1, qg_of_iv * (C * bin_max) + seq_c * bin_max + rbin, n_bins)
-    best_bin = _segment(torch.where(keep1, ident, neg), cbin, n_bins + 1, "amax", -np.inf)
-    return best_bin[:n_bins], ovf_vec
+    best_bin = _segment(torch.where(keep1, ident, -1.0), cbin, n_bins + 1, "amax", -np.inf)
+    return best_bin[:n_bins], flags
 
 
 def _fold(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
@@ -266,25 +281,45 @@ def _fold(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
     )
 
 
-class Session:
-    """Reusable query session: the index lives on one device, and groups
-    of query genomes run through `_query_block` one pass per group.
+def _checkpoint_params(index: ShardedIndex, params):
+    """The ``Parameters`` a restored checkpoint runs under: ``params``, or
+    the checkpointed ones when ``None``; a mismatch raises, since another
+    k/w/l would give wrong ANI without a sign."""
+    from pyfastani_tpu.models._params import Parameters
+
+    saved = Parameters.from_state(index.params_state) if index.params_state else None
+    if params is None:
+        if saved is None:
+            raise ValueError("checkpoint carries no Parameters; pass params= explicitly")
+        return saved
+    if saved is not None and params != saved:
+        raise ValueError(f"params mismatch: index was built under {saved}, got {params}")
+    return params
+
+
+class ShardedSession:
+    """Reusable query session over a ("data", "shard") `Mesh`: the index
+    is split by genome over the shard axis and parked once on every cell's
+    device, and groups of query genomes run through `_query_block` one
+    pass per group, the fragment block split over the data axis.
 
     Args:
         mapper: the ``Mapper`` whose index to query (``None`` with
             ``index=`` and ``params=``; see `from_index`).
-        device: ``"cuda"`` by default; without a GPU that raises.  Pass
-            ``"cpu"`` to run the plain torch path on the CPU.
+        mesh: the `Mesh`; default `make_mesh()`, every visible CUDA device
+            on the shard axis.
         hmax, ivmax, cmax, rmax, t_chunks, bin_max, smax: budget
             overrides; `index._presize_budgets` sizes the rest.
         q_capacity: query genomes per pass.
-        frag_capacity: fragments per pass.
+        frag_capacity: fragments per pass (a multiple of ``n_data``).
+        index: a `ShardedIndex` with one shard per mesh column.
+        params: the ``Parameters`` of ``index``.
     """
 
     def __init__(
         self,
         mapper,
-        device=None,
+        mesh: Mesh | None = None,
         hmax: int | None = None,
         ivmax: int | None = None,
         cmax: int | None = None,
@@ -297,14 +332,20 @@ class Session:
         index: ShardedIndex | None = None,
         params=None,
     ):
-        self.device = resolve_device(device)
         self.mapper = mapper
+        self.mesh = mesh if mesh is not None else make_mesh()
         self.params = params if params is not None else mapper._param
         params = self.params
         l = params.min_read_length
+        self.n_shard = self.mesh.shape["shard"]
+        self.n_data = self.mesh.shape["data"]
         self.q_capacity = max(1, int(q_capacity))
-        self.frag_capacity = max(1, int(frag_capacity))
-        sidx = index if index is not None else build_sharded_index(mapper, 1)
+        self.frag_capacity = _round_up(max(int(frag_capacity), self.n_data), self.n_data)
+        if index is not None and index.n_shards != self.n_shard:
+            raise ValueError(
+                f"restored index has {index.n_shards} shards, mesh has {self.n_shard}"
+            )
+        sidx = index if index is not None else build_sharded_index(mapper, self.n_shard)
         self.sidx = fill_missing(sidx)
         self.budgets = _presize_budgets(
             sidx, params,
@@ -312,18 +353,39 @@ class Session:
                  t_chunks=t_chunks, bin_max=bin_max, smax=smax),
         )
         self._g_max = int(sidx.genome_lengths.shape[1])
-        self._idx = index_to_device(sidx, self.device)
+
+        # this process's cells; each shard is parked once per device
+        self._cells = self.mesh.local_cells()
+        self._devices = list(dict.fromkeys(dev for _, _, dev in self._cells))
+        self._idx = {
+            (dev, sh): index_to_device(sidx, dev, sh)
+            for dev, sh in dict.fromkeys((dev, sh) for _, sh, dev in self._cells)
+        }
+        # cells' outputs merge on one device; across processes through the
+        # collective's device (the CPU for gloo)
+        if self.mesh.distributed and torch.distributed.get_backend() != "nccl":
+            self._merge_dev = torch.device("cpu")
+        elif self._devices:
+            self._merge_dev = self._devices[0]
+        else:
+            self._merge_dev = torch.device("cuda", torch.cuda.current_device())
+        self._s2g = torch.from_numpy(sidx.seq_to_genome).to(self._merge_dev)
+        # pinned host staging needs CUDA; a CPU-only mesh stages in plain
+        # host tensors, which its cells read in place
+        self._pinned = any(dev.type == "cuda" for dev in self._devices)
+        self._slots = {}  # slot -> [frags, frag_qg, events of its last copies]
 
         tab_hi = max(l, 1)
         k, pid = params.kmer_size, params.percentage_identity
         self._mh_tab_np = np.asarray(stats.min_hits_relaxed_table(tab_hi, k, pid))
-        self._mh_tab = torch.from_numpy(self._mh_tab_np).to(self.device)
-        self._gate_tab = torch.from_numpy(
-            np.asarray(stats.l2_gate_table(tab_hi, k, pid))
-        ).to(self.device)
-        self._ident_tab = None  # (smax+1)^2 f32, rebuilt when smax grows
+        gate_np = np.asarray(stats.l2_gate_table(tab_hi, k, pid))
+        self._tabs = {
+            dev: (torch.from_numpy(self._mh_tab_np).to(dev), torch.from_numpy(gate_np).to(dev))
+            for dev in self._devices
+        }
+        self._ident_tab = {}  # device -> (smax+1)^2 f32, rebuilt when smax grows
         # queries from several threads serialize: the session mutates its
-        # budgets per call, and the device is one serial resource anyway
+        # budgets and recycles its staging slots per call
         self._lock = threading.Lock()
         self.stats = {
             "dispatches": 0,
@@ -335,24 +397,16 @@ class Session:
         }
 
     @classmethod
-    def from_index(cls, index: ShardedIndex, params=None, device=None, **kwargs):
-        """A session over a restored `ShardedIndex` checkpoint.
+    def from_index(cls, index: ShardedIndex, params=None, mesh: Mesh | None = None, **kwargs):
+        """A session over a restored `ShardedIndex` checkpoint, whose shard
+        count must equal the mesh's.
 
         ``params`` is the frozen ``Parameters`` the index was built under;
         ``None`` restores them from the checkpoint.  Explicit ``params``
-        that differ from the checkpointed ones raise: another k/w/l would
-        give wrong ANI without a sign.
+        that differ from the checkpointed ones raise.  Every process of a
+        multi-process mesh loads the same checkpoint.
         """
-        from pyfastani_tpu.models._params import Parameters
-
-        saved = Parameters.from_state(index.params_state) if index.params_state else None
-        if params is None:
-            if saved is None:
-                raise ValueError("checkpoint carries no Parameters; pass params= explicitly")
-            params = saved
-        elif saved is not None and params != saved:
-            raise ValueError(f"params mismatch: index was built under {saved}, got {params}")
-        return cls(None, device, index=index, params=params, **kwargs)
+        return cls(None, mesh, index=index, params=_checkpoint_params(index, params), **kwargs)
 
     def _fragments(self, contigs):
         """Per-contig ``(n_i, l)`` uint8 fragment blocks, plus the totals of
@@ -382,97 +436,188 @@ class Session:
 
     def _frag_bucket(self, need: int) -> int:
         """Pass capacity for ``need`` fragments: powers of two from 256 up
-        to 1024, then multiples of 1024, at most ``frag_capacity``.  The
-        chunk budget scales with this padded size, so escalation decisions
-        match the JAX package only if the padding does."""
+        to 1024, then multiples of 1024, rounded to ``n_data`` and at most
+        ``frag_capacity``.  The chunk budget scales with each cell's rows,
+        so escalation decisions match the JAX package only if the padding
+        does."""
         if need <= 1024:
             b = max(256, 1 << (max(need, 1) - 1).bit_length())
         else:
             b = _round_up(need, 1024)
-        return max(1, min(b, self.frag_capacity))
+        return max(1, min(_round_up(b, self.n_data), self.frag_capacity))
 
     def _prepare_tables(self):
-        """(Re)build the identity table when ``smax`` changed; returns the
+        """(Re)build the identity tables when ``smax`` changed; returns the
         reachable minimum-hit values for the current sketch budget."""
         smax = self.budgets["smax"]
-        if self._ident_tab is None or self._ident_tab.shape[0] != smax + 1:
-            self._ident_tab = torch.from_numpy(
-                np.asarray(stats.identity_table(smax, self.params.kmer_size))
-            ).to(self.device)
+        ident = None
+        for dev in self._devices:
+            tab = self._ident_tab.get(dev)
+            if tab is None or tab.shape[0] != smax + 1:
+                if ident is None:
+                    ident = torch.from_numpy(
+                        np.asarray(stats.identity_table(smax, self.params.kmer_size))
+                    )
+                self._ident_tab[dev] = ident.to(dev)
         l = self.params.min_read_length
         return tuple(
             sorted({int(max(int(v), 1)) for v in self._mh_tab_np[: min(smax, l) + 1]})
         )
 
-    def _dispatch(self, frags: np.ndarray, frag_qg: np.ndarray, m_values: tuple):
-        """Run one pass; returns numpy ``(counts, isum_q17, ovf)``."""
-        params = self.params
-        b = self.budgets
-        sidx = self.sidx
-        self.stats["dispatches"] += 1
-        best_bin, ovf = _query_block(
-            torch.from_numpy(frags).to(self.device),
-            torch.from_numpy(frag_qg).to(self.device),
-            self._idx, int(sidx.freq_threshold[0]),
-            self._mh_tab, self._gate_tab, self._ident_tab,
-            params.kmer_size, params.window_size, params.min_read_length,
-            params.alphabet_size != 4,
-            b["hmax"], b["ivmax"], b["cmax"], b["rmax"], b["t_chunks"],
-            self._g_max, b["bin_max"], b["smax"], self.q_capacity,
-            sidx.bucket_steps, m_values, sidx.gpos_shift, sidx.gpos_steps,
-        )
-        counts, isum_hi, isum_lo = _fold(
-            best_bin, self._idx["seq_to_genome"], self.q_capacity, b["bin_max"], self._g_max
-        )
-        counts = counts.cpu().numpy()
-        isum_q17 = isum_hi.cpu().numpy() * 4096 + isum_lo.cpu().numpy()
-        return counts, isum_q17, ovf.cpu().numpy()
-
-    def _stage(self, per_genome, group, Fcap: int):
-        """Host fragment block for one group: rows of fragments, padded
-        with zeros to ``Fcap``, and each row's query-genome slot."""
+    def _stage(self, per_genome, group, slot: int, Fcap: int):
+        """Fill host staging slot ``slot`` with one group's fragment block:
+        rows of fragments, zero-padded to ``Fcap``, and each row's
+        query-genome slot.  Waits first until the slot's previous copies to
+        the devices have landed."""
         l = self.params.min_read_length
-        frags = np.zeros((Fcap, l + 4), dtype=np.uint8)
-        frag_qg = np.zeros(Fcap, dtype=np.int32)
+        buf = self._slots.get(slot)
+        if buf is not None:
+            for event in buf[2]:
+                event.synchronize()
+        if buf is None or buf[0].shape[0] < Fcap:
+            pin = self._pinned
+            buf = self._slots[slot] = [
+                torch.zeros((Fcap, l + 4), dtype=torch.uint8, pin_memory=pin),
+                torch.zeros(Fcap, dtype=torch.int32, pin_memory=pin),
+                [],
+            ]
+        frags, frag_qg = buf[0][:Fcap], buf[1][:Fcap]
+        fr, qg = frags.numpy(), frag_qg.numpy()
         row = 0
         for qslot, gi in enumerate(group):
             for block in per_genome[gi][0]:
                 n = block.shape[0]
-                frags[row : row + n, :l] = block
-                frag_qg[row : row + n] = qslot
+                fr[row : row + n, :l] = block
+                qg[row : row + n] = qslot
                 row += n
+        fr[row:] = 0
+        qg[row:] = 0
         return frags, frag_qg, row
 
+    def _pass(self, frags, frag_qg, m_values, slot: int | None = None):
+        """Enqueue one pass of a staged ``(Fcap, l + 4)`` fragment block on
+        every local cell, merge the cells and fold each shard.  Returns
+        the pass's outputs packed in one int64 tensor on the merge device,
+        `_unpack` lays them out; nothing here waits for a device."""
+        params = self.params
+        b = self.budgets
+        sidx = self.sidx
+        Fd = frags.shape[0] // self.n_data
+        inputs = {}
+        for d, _, dev in self._cells:
+            if (dev, d) not in inputs:
+                rows = slice(d * Fd, (d + 1) * Fd)
+                inputs[dev, d] = (
+                    frags[rows].to(dev, non_blocking=True),
+                    frag_qg[rows].to(dev, non_blocking=True),
+                )
+        if slot is not None:  # the slot may be rewritten once these land
+            events = []
+            for dev in self._devices:
+                if dev.type == "cuda":
+                    events.append(torch.cuda.Event())
+                    events[-1].record(torch.cuda.current_stream(dev))
+            self._slots[slot][2] = events
+
+        C = sidx.seq_to_genome.shape[1]
+        n_bins = self.q_capacity * C * b["bin_max"]
+        merged = torch.full(
+            (self.n_shard * n_bins + _N_FLAGS,), -np.inf, dtype=torch.float32,
+            device=self._merge_dev,
+        )
+        merged[-_N_FLAGS:] = 0
+        flags = merged[-_N_FLAGS:]
+        for d, sh, dev in self._cells:
+            best_bin, cell_flags = _query_block(
+                *inputs[dev, d], self._idx[dev, sh], int(sidx.freq_threshold[sh]),
+                *self._tabs[dev], self._ident_tab[dev],
+                params.kmer_size, params.window_size, params.min_read_length,
+                params.alphabet_size != 4,
+                b["hmax"], b["ivmax"], b["cmax"], b["rmax"], b["t_chunks"],
+                self._g_max, b["bin_max"], b["smax"], self.q_capacity,
+                sidx.bucket_steps, m_values, sidx.gpos_shift, sidx.gpos_steps,
+            )
+            # the pmax over data rows: 0/1 flags merge by max too
+            out = merged[sh * n_bins : (sh + 1) * n_bins]
+            torch.maximum(out, best_bin.to(self._merge_dev, non_blocking=True), out=out)
+            cell_flags = cell_flags.to(self._merge_dev, non_blocking=True)
+            torch.maximum(flags, cell_flags.to(torch.float32), out=flags)
+        if self.mesh.distributed:
+            # cells this process does not run hold -inf: one collective is
+            # both the pmax over data and the gather of the shards
+            torch.distributed.all_reduce(merged, op=torch.distributed.ReduceOp.MAX)
+        folds = [
+            _fold(merged[sh * n_bins : (sh + 1) * n_bins], self._s2g[sh],
+                  self.q_capacity, b["bin_max"], self._g_max)
+            for sh in range(self.n_shard)
+        ]
+        return torch.cat(
+            [torch.stack(part).reshape(-1) for part in zip(*folds)] + [flags.to(torch.int64)]
+        )
+
+    def _read_back(self, packed):
+        """Copy every pass's packed outputs to host memory behind one event
+        and wait for it; returns numpy arrays."""
+        if self._merge_dev.type != "cuda":
+            return [p.numpy() for p in packed]
+        host = []
+        for p in packed:
+            host.append(torch.empty(p.shape, dtype=p.dtype, pin_memory=True))
+            host[-1].copy_(p, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self._merge_dev))
+        done.synchronize()
+        return [h.numpy() for h in host]
+
+    def _unpack(self, packed: np.ndarray):
+        """``(counts, isum_q17, flags)``: the first two ``(n_shard,
+        q_capacity, g_max)`` int64, the flags ``(6,)``."""
+        shape = (3, self.n_shard, self.q_capacity, self._g_max)
+        counts, isum_hi, isum_lo = packed[:-_N_FLAGS].reshape(shape)
+        # the limb fold is exact while a genome holds < 2^31/32 occupied
+        # bins; the bin count itself is a sound guard
+        if counts.size and int(counts.max()) > 60_000_000:
+            raise RuntimeError(
+                "per-genome mapped-fragment count exceeds the "
+                "int32-exact range of the identity fold"
+            )
+        return counts, isum_hi * 4096 + isum_lo, packed[-_N_FLAGS:]
+
     def _run_groups(self, per_genome, groups):
-        """Run every group; on a budget overflow, double the blown budgets
-        and run the whole batch again.  Returns ``[(group, counts,
-        isum_q17)]`` with ``(q_capacity, g_max)`` arrays."""
+        """Pipeline every group through the mesh; on a budget overflow,
+        double the blown budgets and run the whole batch again.  Returns
+        ``[(group, counts, isum_q17)]`` with ``(n_shard, q_capacity,
+        g_max)`` arrays."""
         for attempt in range(6):
             m_values = self._prepare_tables()
             # a batch of several groups runs at one capacity, the full one
             force_bucket = self.frag_capacity if len(groups) > 1 else None
-            out = []
-            ovf_acc = np.zeros(5, np.int64)
-            for group in groups:
+            pending = []
+            for g_i, group in enumerate(groups):
                 need = sum(per_genome[gi][1] for gi in group)
                 Fcap = force_bucket or self._frag_bucket(need)
-                frags, frag_qg, row = self._stage(per_genome, group, Fcap)
-                counts, isum_q17, ovf = self._dispatch(frags, frag_qg, m_values)
-                ovf_acc = np.maximum(ovf_acc, ovf)
-                # the limb fold is exact while a genome holds < 2^31/32
-                # occupied bins; the bin count itself is a sound guard
-                if counts.size and int(counts.max()) > 60_000_000:
-                    raise RuntimeError(
-                        "per-genome mapped-fragment count exceeds the "
-                        "int32-exact range of the identity fold"
-                    )
+                frags, frag_qg, row = self._stage(per_genome, group, g_i % 2, Fcap)
+                self.stats["dispatches"] += 1
+                pending.append((group, self._pass(frags, frag_qg, m_values, g_i % 2), row, Fcap))
+
+            out = []
+            flags = np.zeros(_N_FLAGS, np.int64)
+            host = self._read_back([p[1] for p in pending])
+            for (group, _, row, Fcap), packed in zip(pending, host):
+                counts, isum_q17, group_flags = self._unpack(packed)
+                flags = np.maximum(flags, group_flags)
                 out.append((group, counts, isum_q17, row, Fcap))
-            if not ovf_acc.any():
+            if flags[-1]:
+                raise ValueError(
+                    "an L2 chunk's range leaves the minimizer store or its "
+                    "fragment row is missing (a corrupt index?)"
+                )
+            if not flags.any():
                 for _, _, _, row, Fcap in out:
                     self.stats["fragments_dispatched"] += row
                     self.stats["fragments_padded"] += Fcap - row
                 return [(g, c, i) for g, c, i, _, _ in out]
-            blown = [_BUDGET_NAMES[i] for i in np.flatnonzero(ovf_acc)]
+            blown = [_BUDGET_NAMES[i] for i in np.flatnonzero(flags[:-1])]
             if attempt == 5:
                 raise RuntimeError(f"query budget overflow persists for {blown}")
             old = {name: self.budgets[name] for name in blown}
@@ -480,17 +625,18 @@ class Session:
                 self.budgets[name] *= 2
             self.stats["budget_escalations"] += 1
             warnings.warn(
-                "Session budget overflow; escalating "
+                f"{type(self).__name__} budget overflow; escalating "
                 + ", ".join(f"{n} {old[n]} -> {self.budgets[n]}" for n in blown),
                 UserWarning,
                 stacklevel=3,
             )
 
-    def warmup(self, frag_counts=None):
+    def warmup(self, frag_counts=None, q_counts=None):
         """Run one zero-filled pass per capacity bucket (default: the full
         ``frag_capacity``), so the first real query pays no one-time cost
-        (kernel build and load, allocator growth).  Returns a dict of
-        bucket -> seconds."""
+        (kernel build and load, allocator growth).  ``q_counts`` is
+        ignored: the genome axis is always ``q_capacity``.  Returns a dict
+        of bucket -> seconds."""
         l = self.params.min_read_length
         out = {}
         with self._lock:
@@ -500,9 +646,8 @@ class Session:
                 if Fcap in out:
                     continue
                 t0 = time.perf_counter()
-                self._dispatch(
-                    np.zeros((Fcap, l + 4), np.uint8), np.zeros(Fcap, np.int32), m_values
-                )
+                frags = torch.zeros((Fcap, l + 4), dtype=torch.uint8)
+                self._read_back([self._pass(frags, torch.zeros(Fcap, dtype=torch.int32), m_values)])
                 out[Fcap] = time.perf_counter() - t0
         return out
 
@@ -528,12 +673,13 @@ class Session:
         if frag_bucket:
             need = max(need, int(frag_bucket))
         if need > self.frag_capacity:
+            new_cap = _round_up(need, self.n_data)
             warnings.warn(
-                f"Session fragment capacity grown {self.frag_capacity} -> {need}",
+                f"{type(self).__name__} fragment capacity grown {self.frag_capacity} -> {new_cap}",
                 UserWarning,
                 stacklevel=2,
             )
-            self.frag_capacity = need
+            self.frag_capacity = new_cap
             self.stats["capacity_growths"] += 1
 
         # balanced packing (LPT) into the fewest groups, so group sizes --
@@ -572,17 +718,20 @@ class Session:
             for slot, gi in enumerate(group):
                 _, total_fragments, total_length = per_genome[gi]
                 hits = []
-                for gj, name in enumerate(sidx.genome_names[0]):
-                    c = int(counts[slot, gj])
-                    if c == 0:
-                        continue
-                    # the exact arithmetic of _engine_np.mean_identity
-                    identity = float(np.float32(int(isum_q17[slot, gj]) / (131072.0 * c)))
-                    min_length = min(total_length, int(sidx.genome_lengths[0, gj]))
-                    if np.float32(c * l) >= np.float32(min_length) * np.float32(
-                        params.min_fraction
-                    ):
-                        hits.append(Hit(name, identity, c, total_fragments))
+                for sh in range(sidx.n_shards):
+                    for gj, name in enumerate(sidx.genome_names[sh]):
+                        c = int(counts[sh, slot, gj])
+                        if c == 0:
+                            continue
+                        # the exact arithmetic of _engine_np.mean_identity
+                        identity = float(
+                            np.float32(int(isum_q17[sh, slot, gj]) / (131072.0 * c))
+                        )
+                        min_length = min(total_length, int(sidx.genome_lengths[sh, gj]))
+                        if np.float32(c * l) >= np.float32(min_length) * np.float32(
+                            params.min_fraction
+                        ):
+                            hits.append(Hit(name, identity, c, total_fragments))
                 hits.sort(key=lambda h: h.identity, reverse=True)
                 results[gi] = hits
         return results
@@ -590,3 +739,24 @@ class Session:
     def query(self, contigs, frag_bucket: int | None = None):
         """Query one genome; returns `Hit`s like ``Mapper.query_draft``."""
         return self.query_many([contigs], frag_bucket=frag_bucket)[0]
+
+
+class Session(ShardedSession):
+    """A `ShardedSession` on one device: the ``1 x 1`` mesh, local to this
+    process even under ``torch.distributed``.
+
+    ``device`` is ``"cuda"`` by default, which raises without a GPU; pass
+    ``"cpu"`` to run the plain torch path on the CPU.  The other keyword
+    arguments are `ShardedSession`'s.
+    """
+
+    def __init__(self, mapper, device=None, **kwargs):
+        dev = resolve_device(device)
+        super().__init__(mapper, Mesh(devices=((dev,),), ranks=((0,),)), **kwargs)
+        self.device = dev
+
+    @classmethod
+    def from_index(cls, index: ShardedIndex, params=None, device=None, **kwargs):
+        """A one-device session over a restored checkpoint (see
+        `ShardedSession.from_index`)."""
+        return cls(None, device, index=index, params=_checkpoint_params(index, params), **kwargs)

@@ -174,17 +174,56 @@ def test_cuda_kernel_matches_reference(case, rmax):
     assert tl2.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert int(got[3]) == 0
     with pytest.raises(ValueError, match="rmax"):
         tl2.l2_chunks(*args[:-1], 1 << 20)
+    for name, bad_args in _out_of_range_cases("cuda").items():
+        got = tl2.l2_chunks(*bad_args)
+        want = tl2.l2_chunks_reference(*bad_args)
+        torch.cuda.synchronize()
+        assert int(got[3]) == int(want[3]) == 1, name
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+
+
+def _out_of_range_cases(device="cpu"):
+    """The edge case with every range run off the store's end, and with
+    every fragment row missing."""
+    args = list(_port(*_edge_case(), rmax=896, device=device))
+    M = args[2].shape[0]
+    off_end = list(args)
+    off_end[5] = torch.full_like(args[5], M - 3)  # lo: 5- and 10-long ranges leave the store
+    no_row = list(args)
+    no_row[7] = torch.full_like(args[7], 99)  # frag: no such sketch row
+    return {"off_end": off_end, "no_row": no_row}
 
 
 def test_l2_chunks_refuses_ranges_outside_the_store():
-    args = list(_port(*_edge_case(), rmax=896))
-    M = args[2].shape[0]
-    args[5] = torch.full_like(args[5], M - 3)  # lo: 5- and 10-long ranges run off the end
-    with pytest.raises(ValueError, match="range"):
-        tl2.l2_chunks(*args)
-    args = list(_port(*_edge_case(), rmax=896))
-    args[7] = torch.full_like(args[7], 99)  # frag: no such sketch row
-    with pytest.raises(ValueError, match="fragment"):
-        tl2.l2_chunks(*args)
+    """A chunk whose range leaves the store, or whose fragment row is
+    missing, is not read: it comes back empty and raises the range flag,
+    and a session that reads the flag after its pass raises."""
+    for name, args in _out_of_range_cases().items():
+        best, first, last, bad = tl2.l2_chunks(*args)
+        assert bad.dtype == torch.int32 and bad.dim() == 0 and int(bad) == 1, name
+        hit = (args[5].long() + args[6].long().clamp(0, 896) > args[2].shape[0]) | (
+            args[7] >= args[0].shape[0]
+        )
+        assert torch.equal(best[hit], torch.full_like(best[hit], -1)), name
+        assert torch.equal(first[hit], args[8][hit]) and torch.equal(last[hit], args[8][hit])
+    ok = tl2.l2_chunks(*_port(*_edge_case(), rmax=896))
+    assert int(ok[3]) == 0
+
+    import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch.session import Session
+
+    rng = np.random.default_rng(5)
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=20_000).tobytes()
+    sk = pt.Sketch(device="cpu")
+    sk.add_genome("ref", ref)
+    session = Session(sk.index(), device="cpu")
+    assert session.query([ref])
+    # a corrupt index: every contig's first minimizer lies past the store
+    idx = session._idx[torch.device("cpu"), 0]
+    idx["cof_idx"] = idx["cof_idx"] + idx["mini_hash"].shape[0] + 5
+    with pytest.raises(ValueError, match="range leaves the minimizer store or its fragment"):
+        session.query([ref])

@@ -113,7 +113,8 @@ def test_query_block_and_fold_match_jax(tiny, q_count):
     got = _fold(t_bin, idx["seq_to_genome"], q_count, b["bin_max"], g_max)
     for name, g, w in zip(["counts", "isum_hi", "isum_lo"], got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    np.testing.assert_array_equal(t_ovf.numpy(), np.asarray(ovf))
+    # the port's flags are JAX's five budget overflows, then the L2 range flag
+    np.testing.assert_array_equal(t_ovf[:5].numpy(), np.asarray(ovf))
     np.testing.assert_array_equal(t_bin.numpy(), np.asarray(best_bin))
     assert got[0].numpy()[0, 0] > 0 and not t_ovf.any()
 
@@ -240,6 +241,16 @@ def test_port_never_imports_jax():
         mapper = pickle.loads(pickle.dumps(sk.index()))
         hits = mapper.query_genome(ref)
         assert hits and hits[0].matches == hits[0].fragments, hits
+        # the mesh, the sharded session, the ingest winnow and profiling
+        from pyfastani_tpu_torch.models._engine_torch import winnow_sequence_device
+        from pyfastani_tpu_torch.parallel.mesh import make_mesh
+        from pyfastani_tpu_torch.parallel.sharded import ShardedSession, sharded_query
+        from pyfastani_tpu_torch.utils.profiling import timed, trace
+        mesh = make_mesh(2, 2, devices=["cpu"] * 4)
+        assert ShardedSession(mapper, mesh).query([ref]) == hits
+        assert sharded_query(mapper, [ref], mesh) == hits
+        h, p = winnow_sequence_device(np.frombuffer(ref, np.uint8), mapper._param, device="cpu")
+        assert h.size == p.size > 0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
         """

@@ -9,8 +9,13 @@ passes reports:
 * per-stage stream time, from CUDA events around each stage of
   ``session._query_block`` (fragment winnow, L1, L2 chunk sweep, gate and
   CGI) and around the identity fold, with the host wall time of the pass;
+* host wall time of the session's host steps: cutting the queries into
+  fragments (``_fragments``, which runs ``codec.to_bytes``), filling the
+  staging slots (``_stage``) and the final read-back, which waits for the
+  device (``_read_back``);
 * the device's busy and idle share and the top kernels by device time,
-  from ``torch.profiler``.
+  from ``torch.profiler`` through ``pyfastani_tpu_torch.utils.profiling``
+  (the Chrome trace lands in ``build/torch_query_profile/``).
 
 Every line names the card and its power limit.  Needs a GPU; imports no JAX.
 """
@@ -72,6 +77,23 @@ class _StageTimer:
             setattr(self._module, attr, fn)
 
 
+class _HostTimer(_StageTimer):
+    """Wraps methods with a host wall clock instead of CUDA events."""
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.events[label].append(time.perf_counter() - t0)
+
+        return timed
+
+    def totals_ms(self):
+        return {k: 1e3 * sum(v) for k, v in self.events.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--refs", type=int, default=10)
@@ -116,6 +138,11 @@ def main() -> int:
         "_query_block": "query block",
         "_fold": "identity fold",
     })
+    host = _HostTimer(S.ShardedSession, {
+        "_fragments": "_fragments",
+        "_stage": "_stage",
+        "_read_back": "_read_back",
+    })
     walls = []
     for _ in range(args.passes):
         t0 = time.perf_counter()
@@ -123,7 +150,9 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     timer.restore()
+    host.restore()
     tot = {k: v / args.passes for k, v in timer.totals_ms().items()}
+    host_ms = {k: v / args.passes for k, v in host.totals_ms().items()}
     block = tot.pop("query block")
     tot["gate+CGI"] = block - sum(tot[k] for k in ("winnow+sketch", "L1", "L2 sweep"))
     wall_ms = 1e3 * float(np.median(walls))
@@ -137,26 +166,29 @@ def main() -> int:
     rest = wall_ms - block - tot["identity fold"]
     print(f"  {'host+transfer':14s} {rest:9.3f} ms  {100 * rest / wall_ms:5.1f}% of wall "
           "(wall less the block and the fold)")
+    print("host wall time per pass (perf_counter around the session's host steps):")
+    for k, v in host_ms.items():
+        print(f"  {k:14s} {v:9.3f} ms  {100 * v / wall_ms:5.1f}% of wall")
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from pyfastani_tpu_torch.utils.profiling import device_time_ms, trace
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with trace(os.path.join(root, "build", "torch_query_profile")) as prof:
         t0 = time.perf_counter()
         session.query_many(batch)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies): the host ops that launch
-    # them carry the same time again
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    busy = 100 * busy_us / 1e6 / prof_wall
-    print(f"profiled pass: wall {1e3 * prof_wall:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+    busy_ms = device_time_ms(prof)
+    busy = 100 * busy_ms / 1e3 / prof_wall
+    print(f"profiled pass: wall {1e3 * prof_wall:.3f} ms, device busy {busy_ms:.3f} ms "
           f"= {busy:.1f}% (idle {100 - busy:.1f}%) ({gpu})")
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for e in kernels[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    if busy_us == 0:
+    if busy_ms == 0:
         print("  the profiler recorded no device time: read the event times above")
     return 0
 
