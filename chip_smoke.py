@@ -4,21 +4,27 @@ Run from the root of a checkout, with one NVIDIA Hopper card visible:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``pyfastani_tpu_torch/csrc/`` and
-runs these phases in order, one line each; any failure exits non-zero
-without printing a result:
+It builds the port's host C extension (``pyfastani_tpu_torch/_native/``)
+and CUDA kernel (``pyfastani_tpu_torch/csrc/``) and runs these phases in
+order, one line each; any failure exits non-zero without printing a
+result:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; exits 1 when ``torch.cuda.is_available()`` is false;
-2. the kernel build (nvcc), timed;
+2. the two builds (host C compiler, nvcc), timed;
 3. the L2 chunk kernel against its plain torch version, bitwise (the
    range flag included, also on chunks that leave the store), on CUDA
-   tensors at the query path's shapes, with both times;
+   tensors: a synthetic ``main`` case at the small batch's budgets, a
+   ``wide`` one at the largest range, and, after phase 4, ``real``: the
+   operands of one L2 sweep of phase 4's small batch.  Each with the
+   kernel's and the plain version's times, the kernel alone in device
+   time (``torch.profiler``), and its bound;
 4. the query path at a real size (10 random 2 Mbp references, 4 queries
    mutated at 3%): ``Sketch`` -> ``index()`` -> ``Mapper.query_genome``
-   and ``Session.query_many``, held against the host NumPy engine of
-   ``pyfastani_tpu`` (hits equal, identity ``==``), an unrelated query
-   giving ``[]``, and the kernel launch count of that run;
+   and ``Session.query_many``, held against the port's host NumPy engine
+   (``Mapper._query_host``, L1 and L2 in NumPy; hits equal, identity
+   ``==``), an unrelated query giving ``[]``, and the kernel launch
+   count of that run;
 5. phase 4's panel on a ``(2, 2)`` mesh (``ShardedSession``): four cards
    when there are four, else ``cuda:0`` in all four cells; hits equal
    phase 4's and the host engine's;
@@ -37,13 +43,13 @@ without printing a result:
 Phases 4 to 6 each reset the kernel's launch counters before their run
 and fail unless the kernel ran and its plain version did not.  The last
 lines are the card, a JSON object with one entry per kernel (launches
-summed over phases 4 to 6), and ``{"ok": true, "device": {...}}``.
-Imports no JAX.
+summed over phases 4 to 6, times and bound at the ``real`` case), and
+``{"ok": true, "device": {...}}``.  Imports neither JAX nor anything of
+``pyfastani_tpu``, and fails if either was loaded.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 import socket
@@ -64,6 +70,10 @@ KERNEL_RMAX = 896  # range capacity R - 128 the presizer gives 10 x 2 Mbp
 WIDE_N, WIDE_RMAX = 4096, 8064  # the largest presized range: > 48 KB smem
 CMW, CMAX = 2985, 3072  # k = 16, l = 3000
 TIMING_REPS = 10
+# the bound: H100 SXM memory rate, and int32 rate = 132 SMs x 64 INT32
+# lanes x 1.98 GHz (the published 67 TFLOP/s float32 peak over four)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 
 # phase 4: the small-batch workload of bench.py
 N_REFS, REF_LEN, N_QUERIES, MUT_RATE = 10, 2_000_000, 4, 0.03
@@ -82,25 +92,6 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def ensure_native() -> str:
-    """Build the host C extension in place when absent (it is not committed).
-
-    Runs before anything imports ``pyfastani_tpu``, so the process loads
-    the built module once and never its NumPy fallback."""
-    pattern = os.path.join(ROOT, "pyfastani_tpu", "_native", "_native*.so")
-    if glob.glob(pattern):
-        return "present"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "setup.py", "-q", "build_ext", "--inplace"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-    )
-    took = time.perf_counter() - t0
-    if not glob.glob(pattern):
-        return f"unbuilt, NumPy fallback (rc={proc.returncode}, {took:.1f} s)"
-    return f"built in {took:.1f} s"
 
 
 def mini_store(rng, m: int, n_contigs: int, hash_bits: int = 18):
@@ -160,50 +151,153 @@ def time_ms(fn, args, reps: int = TIMING_REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def phase_kernel(device, gpu: str) -> dict:
+def kernel_work(args) -> dict:
+    """The least work of one `l2_chunks` call on these inputs: the bytes
+    it must move (the store entries its live ranges cover, the sketch
+    rows it searches, the chunk operands and outputs, each once) and its
+    integer operations (4 per range entry for the membership probe and
+    the interval start, ``n_in log2 n_in`` to sort a chunk's in-sketch
+    starts, two ``log2(n_in + 1)``-step searches per anchor)."""
+    import torch
+
+    from pyfastani_tpu_torch._common import i32_to_hash
+
+    q, s_sizes, mh, wpos, _, lo, rlen, frag, c0, clen, _, rmax = args
+    F, S = q.shape
+    M, N = mh.shape[0], lo.shape[0]
+    lo64, n = lo.long(), rlen.long().clamp(0, rmax)
+    bad = (lo64 < 0) | (lo64 + n > M) | (frag < 0) | (frag >= F)
+    ids = torch.nonzero((n > 0) & (clen > 0) & ~bad).reshape(-1)
+    cover = torch.zeros(M + 1, dtype=torch.int64, device=q.device)
+    cover.index_add_(0, lo64[ids], torch.ones_like(ids))
+    cover.index_add_(0, lo64[ids] + n[ids], -torch.ones_like(ids))
+    covered = int((torch.cumsum(cover, 0)[:M] > 0).sum())
+    rows = torch.unique(frag[ids]).long()
+    row_words = int(s_sizes[rows].long().clamp(0, S).sum()) + rows.numel()
+    nbytes = 12 * covered + 4 * row_words + 4 * 8 * N + 4
+
+    ops = 0
+    R = int(n[ids].max()) if ids.numel() else 0
+    j = torch.arange(max(R, 1), device=q.device)[None, :]
+    for s0 in range(0, ids.numel(), 4096):
+        b = ids[s0 : s0 + 4096]
+        valid = j < n[b][:, None]
+        g = (lo64[b][:, None] + j).clamp(0, M - 1)
+        h = i32_to_hash(mh[g])
+        p = wpos[g].long()
+        rowq = q[frag[b].long()]
+        s_eff = s_sizes[frag[b].long()].long().clamp(max=S)[:, None]
+        at = torch.searchsorted(rowq, h)
+        n_in = (valid & (at < s_eff) & (rowq.gather(1, at.clamp(max=S - 1)) == h)).sum(1)
+        cc0 = c0[b].long()[:, None]
+        anchors = (valid & (p >= cc0) & (p < cc0 + clen[b].long()[:, None])).sum(1)
+        lg = torch.ceil(torch.log2(n_in.double() + 1))
+        ops += int((4 * n[b] + n_in * lg + 2 * anchors * lg).sum())
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    return dict(
+        live=int(ids.numel()), entries=int(n[ids].sum()), bytes=nbytes, ops=ops,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
+def kernel_device_ms(fn, args, reps: int = 20) -> float:
+    """Device time of `l2_chunks_kernel` alone per call, from a
+    ``torch.profiler`` trace of ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "l2_chunks_kernel" in e.key
+    )
+    return total / 1e3 / reps
+
+
+def check_kernel(name: str, args, gpu: str) -> dict:
+    """The kernel against its plain version on ``args``, bitwise, with the
+    range flag 0 there and 1 on a copy whose chunks leave the store or
+    name no sketch row; then both times (plain, kernel, kernel, plain),
+    the kernel alone in device time, and the bound."""
     import torch
 
     from pyfastani_tpu_torch.ops import l2
 
+    got = l2.l2_chunks(*args)
+    want = l2.l2_chunks_reference(*args)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if err != 0 or int(got[3]) != 0:
+        raise AssertionError(f"l2_chunks kernel differs from the plain version ({name}): {err}")
+    n, M, F = args[5].shape[0], args[2].shape[0], args[0].shape[0]
+    bad = list(args)
+    sel = torch.arange(n, device=args[5].device) % 97 == 0
+    bad[5] = torch.where(sel, M - 1, args[5])
+    bad[6] = torch.where(sel, 2, args[6])
+    bad[7] = torch.where(torch.arange(n, device=args[5].device) % 89 == 0, F, args[7])
+    got_bad = l2.l2_chunks(*bad)
+    want_bad = l2.l2_chunks_reference(*bad)
+    torch.cuda.synchronize()
+    err_bad = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got_bad, want_bad))
+    if err_bad != 0 or int(got_bad[3]) != 1:
+        raise AssertionError(f"l2_chunks range flag differs from the plain version ({name})")
+    plain_a = time_ms(l2.l2_chunks_reference, args)
+    kern_a = time_ms(l2.l2_chunks, args)
+    kern_b = time_ms(l2.l2_chunks, args)
+    plain_b = time_ms(l2.l2_chunks_reference, args)
+    alone = kernel_device_ms(l2.l2_chunks, args)
+    work = kernel_work(args)
+    kern_ms, plain_ms = min(kern_a, kern_b), min(plain_a, plain_b)
+    log(
+        f"[3] l2_chunks {name}: N={n} chunks ({work['live']} live, {work['entries']} range "
+        f"entries), rmax={args[11]}, S={args[0].shape[1]}, cmw={args[10]}: bitwise equal, "
+        f"range flag 0, and 1 on equal output with chunks off the store; kernel "
+        f"{kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per call, "
+        f"kernel alone {alone:.4f} ms of device time; bound {work['bound_ms']:.4f} ms by "
+        f"{work['bound_by']} ({work['bytes']} B, {work['ops']} int32 ops), "
+        f"{100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
+    )
+    return dict(
+        max_abs_err=err, ms=kern_ms, plain_ms=plain_ms, device_ms=alone,
+        bound_ms=work["bound_ms"], bound_by=work["bound_by"], library_ms=None,
+    )
+
+
+def phase_kernel(device, gpu: str) -> None:
     rng = np.random.default_rng(11)
-    result = None
     for name, n, rmax in (("main", KERNEL_N, KERNEL_RMAX), ("wide", WIDE_N, WIDE_RMAX)):
-        args = kernel_case(rng, n, rmax, device)
-        got = l2.l2_chunks(*args)
-        want = l2.l2_chunks_reference(*args)
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-        if err != 0 or int(got[3]) != 0:
-            raise AssertionError(f"l2_chunks kernel differs from the plain version ({name}): {err}")
-        # some chunks leave the store or name no fragment row: both versions
-        # skip them and raise the range flag
-        bad = list(args)
-        sel = torch.arange(n, device=device) % 97 == 0
-        bad[5] = torch.where(sel, KERNEL_M - 1, args[5])
-        bad[6] = torch.where(sel, 2, args[6])
-        bad[7] = torch.where(torch.arange(n, device=device) % 89 == 0, KERNEL_F, args[7])
-        got_bad = l2.l2_chunks(*bad)
-        want_bad = l2.l2_chunks_reference(*bad)
-        torch.cuda.synchronize()
-        err_bad = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got_bad, want_bad))
-        if err_bad != 0 or int(got_bad[3]) != 1:
-            raise AssertionError(f"l2_chunks range flag differs from the plain version ({name})")
-        # plain, kernel, kernel, plain: both sides see the same card state
-        plain_a = time_ms(l2.l2_chunks_reference, args)
-        kern_a = time_ms(l2.l2_chunks, args)
-        kern_b = time_ms(l2.l2_chunks, args)
-        plain_b = time_ms(l2.l2_chunks_reference, args)
-        live = int(((args[6] > 0) & (args[9] > 0)).sum())
-        kern_ms, plain_ms = min(kern_a, kern_b), min(plain_a, plain_b)
-        log(
-            f"[3] l2_chunks {name}: N={n} chunks ({live} live), rmax={rmax}, "
-            f"S={KERNEL_S}, cmw={CMW}: bitwise equal, range flag 0, and 1 on equal "
-            f"output with chunks off the store; kernel {kern_a:.3f}/{kern_b:.3f} ms, "
-            f"plain {plain_a:.3f}/{plain_b:.3f} ms per call ({gpu})"
-        )
-        if result is None:
-            result = dict(max_abs_err=err, ms=kern_ms, plain_ms=plain_ms)
-    return result
+        check_kernel(name, kernel_case(rng, n, rmax, device), gpu)
+
+
+def capture_l2_operands(session, batch):
+    """The operands of the first `l2_chunks` call of one
+    ``session.query_many(batch)``, cloned."""
+    import torch
+
+    from pyfastani_tpu_torch import session as session_module
+
+    captured = []
+    original = session_module.l2_chunks
+
+    def capture(*args):
+        if not captured:
+            captured.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return original(*args)
+
+    session_module.l2_chunks = capture
+    try:
+        session.query_many(batch)
+    finally:
+        session_module.l2_chunks = original
+    return captured[0]
 
 
 def mutate(rng, base: np.ndarray, rate: float) -> np.ndarray:
@@ -315,15 +409,9 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
             f"main path ran the kernel {launches} times and the plain version {plain_calls} times"
         )
 
-    import pyfastani_tpu
-
-    host = pyfastani_tpu.Sketch(backend="numpy")
-    for i, r in enumerate(refs):
-        host.add_genome(f"ref{i}", r)
-    host_mapper = host.index()
     t0 = time.perf_counter()
     for qi, q in enumerate(queries):
-        want = host_mapper.query_genome(q)
+        want = mapper._query_host([q])
         if not want or want[0].name != f"ref{qi % N_REFS}":
             raise AssertionError(f"host engine query {qi} gave {want}")
         if hit_key(many[qi]) != hit_key(want):
@@ -334,7 +422,8 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         f"(names, matches, fragments, identity ==; host {t_host:.1f} s); "
         f"unrelated query -> []; kernel launches {launches}, plain-version runs {plain_calls}"
     )
-    return mapper, many, launches
+    real = capture_l2_operands(session, batch)
+    return mapper, many, launches, real
 
 
 def phase_mesh(gpu: str, mapper, queries, want) -> int:
@@ -436,9 +525,9 @@ def phase_pipeline(gpu: str, mapper, queries) -> int:
 def phase_ingest(gpu: str, refs) -> None:
     import torch
 
-    from pyfastani_tpu import _native
-    from pyfastani_tpu.models._params import Parameters
+    from pyfastani_tpu_torch import _native
     from pyfastani_tpu_torch.models._engine_torch import winnow_sequence_device
+    from pyfastani_tpu_torch.models._params import Parameters
 
     params = Parameters()
     data = np.frombuffer(refs[0], dtype=np.uint8)
@@ -553,27 +642,35 @@ def main() -> int:
     gpu = gpu_line()
     log(f"[1] {gpu}; {torch.cuda.device_count()} device(s)")
 
-    log(f"[2] host C extension: {ensure_native()}")
     sys.path.insert(0, ROOT)
     import pyfastani_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from pyfastani_tpu_torch import _build
+    from pyfastani_tpu_torch import _build, _native
 
+    t0 = time.perf_counter()
+    _native.load()
+    t_native = time.perf_counter() - t0
     t0 = time.perf_counter()
     _build.load_library()
     took = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln]
-    log(f"[2] kernel library built and loaded in {took:.1f} s; ptxas: {' | '.join(ptxas)}")
+    log(f"[2] host C extension built and loaded in {t_native:.1f} s; kernel library built "
+        f"and loaded in {took:.1f} s; ptxas: {' | '.join(ptxas)}")
 
     device = torch.device("cuda", 0)
-    kern = phase_kernel(device, gpu)
+    phase_kernel(device, gpu)
     refs, queries, unrelated = genomes()
-    mapper, many, launches = phase_query(gpu, refs, queries, unrelated)
+    mapper, many, launches, real = phase_query(gpu, refs, queries, unrelated)
+    kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
     launches += phase_mesh(gpu, mapper, queries, many)
     launches += phase_pipeline(gpu, mapper, queries)
     phase_ingest(gpu, refs)
     phase_nccl(gpu, mapper, queries[0], many[0])
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(
+        m for m in sys.modules
+        if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")
+    )
+    if loaded:
+        raise AssertionError(f"modules of JAX or of the JAX package were imported: {loaded}")
 
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -582,7 +679,7 @@ def main() -> int:
         "source": "pyfastani_tpu_torch/csrc/l2_chunks.cu",
         "replaces": "pyfastani_tpu/ops/l2_pallas.py:119",
         "launches": launches,
-        **kern,
+        **{k: v for k, v in kern.items() if k != "device_ms"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

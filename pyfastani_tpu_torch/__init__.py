@@ -16,11 +16,14 @@ evaluator is a hand-written CUDA kernel (``csrc/l2_chunks.cu``).
 
 The default device is ``cuda``; without a GPU that raises.  Pass
 ``device="cpu"`` to run the plain torch path on the CPU.  The package
-imports ``torch`` and never ``jax``.
+imports ``torch`` and never ``jax``, and nothing of ``pyfastani_tpu``: it
+keeps its own copies of the host code it shares with that package, and
+builds its host C extension (``_native``) and its CUDA library
+(``_build``) at first use.
 """
 
-from pyfastani_tpu.models._params import MAX_KMER_SIZE
-from pyfastani_tpu.models._types import (
+from .models._params import MAX_KMER_SIZE
+from .models._types import (
     Hit,
     MinimizerIndex,
     MinimizerInfo,

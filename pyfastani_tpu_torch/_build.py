@@ -89,7 +89,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.l2_chunks_smem_bytes.argtypes = [i32, i32]
     lib.l2_chunks_smem_bytes.restype = i64
-    lib.l2_chunks_smem_limit.argtypes = [i32]
+    lib.l2_chunks_smem_limit.argtypes = [i32, i32]
     lib.l2_chunks_smem_limit.restype = i64
     lib.l2_chunks_error_string.argtypes = [i32]
     lib.l2_chunks_error_string.restype = ctypes.c_char_p

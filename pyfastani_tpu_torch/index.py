@@ -22,7 +22,9 @@ import os
 import numpy as np
 import torch
 
+from . import _native
 from ._common import BIG, GBIG, bits_to_i32
+from .models import _engine_np as np_engine
 from .ops.l2 import mini_prev_from_index
 
 __all__ = [
@@ -149,8 +151,6 @@ def _build_gpos_bucket(mini_gpos: np.ndarray):
 def _take_4byte(values: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """``values[idx]`` through the threaded C gather, which reads raw
     4-byte elements: any other element size is refused here."""
-    from pyfastani_tpu import _native
-
     if np.asarray(values).dtype.itemsize != 4:
         raise TypeError(f"take_4byte needs 4-byte elements, got {values.dtype}")
     return _native.take_4byte(values, idx)
@@ -159,8 +159,6 @@ def _take_4byte(values: np.ndarray, idx: np.ndarray) -> np.ndarray:
 def build_sharded_index(mapper, n_shards: int) -> ShardedIndex:
     """Partition a Mapper's reference set by genome into ``n_shards``
     balanced sub-indexes (greedy bin packing by minimizer count)."""
-    from pyfastani_tpu.models import _engine_np as np_engine
-
     idx = mapper._index
     sbf = np.asarray(mapper._sequences_by_file, dtype=np.int64)
     n_genomes = len(mapper._names)
@@ -364,8 +362,6 @@ def _presize_budgets(sidx: ShardedIndex, params, overrides: dict) -> dict:
 
     rmax = overrides.get("rmax")
     if not rmax:
-        from pyfastani_tpu import _native
-
         window = cmax + cmw
         worst = 1
         for sh in range(sidx.n_shards):

@@ -1,7 +1,7 @@
 """Device ingest of the port: the chunked long-sequence winnow.
 
 Port of ``pyfastani_tpu/models/_engine_jax.py``.  `Sketch` ingestion
-winnows on the host (the C winnow of ``pyfastani_tpu._native``), as in
+winnows on the host (the C winnow of the port's ``_native``), as in
 the JAX package; this entry point serves pipelines whose sequences
 already live on the device, and equals the host winnow bitwise.
 """

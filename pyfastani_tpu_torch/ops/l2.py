@@ -158,11 +158,11 @@ def l2_chunks(
     S = q_sorted.shape[1]
     dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
     smem = lib.l2_chunks_smem_bytes(S, rmax)
-    limit = lib.l2_chunks_smem_limit(dev.index)
+    limit = lib.l2_chunks_smem_limit(dev.index, rmax)
     if smem > limit:
         raise ValueError(
             f"rmax={rmax} (with a {S}-wide sketch) needs {smem} bytes of "
-            f"shared memory per chunk; this device allows {limit}"
+            f"shared memory per block; this device allows {limit}"
         )
     N = lo.shape[0]
     best = torch.empty(N, dtype=torch.int32, device=dev)

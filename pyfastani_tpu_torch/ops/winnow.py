@@ -18,9 +18,8 @@ import functools
 
 import torch
 
-from pyfastani_tpu.ops.codec import complement_table
-
 from .._common import UMAX
+from .codec import complement_table
 from .murmur3 import kmer_hashes
 
 __all__ = ["nucl_canonical", "prot_hashes", "winnow", "winnow_chunk"]

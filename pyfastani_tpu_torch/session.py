@@ -42,10 +42,7 @@ import warnings
 import numpy as np
 import torch
 
-from pyfastani_tpu import stats
-from pyfastani_tpu.models._types import Hit
-from pyfastani_tpu.ops import codec
-
+from . import stats
 from ._common import BIG, resolve_device
 from .parallel.mesh import Mesh, make_mesh
 from .index import (
@@ -57,6 +54,9 @@ from .index import (
     fill_missing,
     index_to_device,
 )
+from .models._params import Parameters
+from .models._types import Hit
+from .ops import codec
 from .ops.fragments import winnow_fragments
 from .ops.l1 import l1_candidates
 from .ops.l2 import l2_chunks
@@ -284,15 +284,14 @@ def _fold(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
 def _checkpoint_params(index: ShardedIndex, params):
     """The ``Parameters`` a restored checkpoint runs under: ``params``, or
     the checkpointed ones when ``None``; a mismatch raises, since another
-    k/w/l would give wrong ANI without a sign."""
-    from pyfastani_tpu.models._params import Parameters
-
+    k/w/l would give wrong ANI without a sign.  Parameters compare by
+    their pickled state, so the JAX package's equal values match."""
     saved = Parameters.from_state(index.params_state) if index.params_state else None
     if params is None:
         if saved is None:
             raise ValueError("checkpoint carries no Parameters; pass params= explicitly")
         return saved
-    if saved is not None and params != saved:
+    if saved is not None and params.to_state() != saved.to_state():
         raise ValueError(f"params mismatch: index was built under {saved}, got {params}")
     return params
 

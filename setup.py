@@ -14,7 +14,8 @@ setup(
     ),
     package_data={
         "pyfastani_tpu": ["py.typed", "**/*.pyi"],
-        "pyfastani_tpu_torch": ["csrc/*.cu"],
+        # built at first use: the CUDA library and the host C extension
+        "pyfastani_tpu_torch": ["csrc/*.cu", "_native/fastamod.c"],
     },
     ext_modules=[
         Extension(

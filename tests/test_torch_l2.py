@@ -41,9 +41,9 @@ def _contig_clamp(seqid, lo, rlen):
     return rlen
 
 
-def _random_case(seed, M=20000, F=16, S=256, N=64, rmax=700):
+def _random_case(seed, M=20000, F=16, S=256, N=64, rmax=700, hash_bits=18):
     rng = np.random.default_rng(seed)
-    mh, seqid, wpos = _mini_store(rng, M)
+    mh, seqid, wpos = _mini_store(rng, M, hash_bits=hash_bits)
     q = np.sort(rng.choice(mh, size=(F, S)), axis=1).astype(np.uint32)
     s_sizes = np.full(F, S, np.int32)
     lo = rng.integers(0, M - 900, size=N).astype(np.int32)
@@ -86,10 +86,72 @@ def _port(store, sketch, chunks, rmax, device="cpu"):
     )
 
 
-_CASES = {"seed1": lambda: _random_case(1), "seed2": lambda: _random_case(2), "edge": _edge_case}
+def _equal_positions_case():
+    """Pairs of entries at one window position (distinct hashes) inside
+    the ranges: the count's second term must search positions."""
+    store, sketch, chunks = _random_case(5)
+    mh, seqid, wpos = (a.copy() for a in store)
+    rng = np.random.default_rng(5)
+    tie = np.flatnonzero(rng.random(mh.shape[0] // 2) < 0.3) * 2 + 1
+    tie = tie[seqid[tie] == seqid[tie - 1]]
+    wpos[tie] = wpos[tie - 1]
+    mh[tie] = np.where(mh[tie] == mh[tie - 1], mh[tie] ^ 1, mh[tie])
+    frag, c0, clen, lo, rlen = chunks
+    return (mh, seqid, wpos), sketch, (frag, wpos[lo], clen, lo, rlen)
 
 
-@pytest.mark.parametrize("case", list(_CASES))
+def _fragment_runs_case():
+    """The session's layout: runs of consecutive chunks share a fragment,
+    with empty slots inside and after the runs."""
+    rng = np.random.default_rng(6)
+    store, sketch, _ = _random_case(6, N=1)
+    mh, seqid, wpos = store
+    F, N, M = sketch[0].shape[0], 100, mh.shape[0]
+    frag = np.sort(rng.integers(0, F, size=N)).astype(np.int32)
+    lo = rng.integers(0, M - 900, size=N).astype(np.int32)
+    rlen = _contig_clamp(seqid, lo, rng.integers(0, 700, size=N).astype(np.int32))
+    clen = rng.integers(1, 3072, size=N).astype(np.int32)
+    clen[rng.random(N) < 0.2] = 0
+    rlen[80:] = 0
+    return store, sketch, (frag, wpos[lo], clen, lo, rlen)
+
+
+def _sketch_sizes_case(S=256, seed=7):
+    """Sketch sizes of 0, below and at S, with S given by the caller."""
+    store, (q, _), chunks = _random_case(seed, S=S)
+    rng = np.random.default_rng(seed)
+    s_sizes = rng.integers(0, S + 1, size=q.shape[0]).astype(np.int32)
+    s_sizes[::3] = 0
+    return store, (q, s_sizes), chunks
+
+
+def _all_anchors_case():
+    """Every range entry is an anchor: the chunk spans its whole range."""
+    store, sketch, (frag, c0, clen, lo, rlen) = _random_case(8)
+    rlen = np.minimum(rlen, 150)
+    wpos = store[2]
+    last = wpos[lo + np.maximum(rlen, 1) - 1]
+    return store, sketch, (frag, c0, np.maximum(last - c0 + 1, 1).astype(np.int32), lo, rlen)
+
+
+_CASES = {
+    "seed1": lambda: _random_case(1),
+    "seed2": lambda: _random_case(2),
+    "edge": _edge_case,
+    "equal_positions": _equal_positions_case,
+    "fragment_runs": _fragment_runs_case,
+    "sketch_sizes": _sketch_sizes_case,
+    "sketch_width_253": lambda: _sketch_sizes_case(S=253, seed=9),
+    "all_anchors": _all_anchors_case,
+    # hashes that repeat within a window: the previous occurrence sets most
+    # starts (few distinct hashes), or some of them
+    "repeats_dense": lambda: _random_case(10, hash_bits=6),
+    "repeats_mixed": lambda: _random_case(11, hash_bits=9),
+}
+_PALLAS_CASES = ["seed1", "seed2", "edge"]
+
+
+@pytest.mark.parametrize("case", _PALLAS_CASES)
 def test_reference_matches_pallas_and_xla(case):
     import jax.numpy as jnp
 
@@ -113,6 +175,28 @@ def test_reference_matches_pallas_and_xla(case):
         np.testing.assert_array_equal(g.numpy(), x, err_msg=name)
         np.testing.assert_array_equal(g.numpy(), np.asarray(p), err_msg=name)
     assert (got[0].numpy() > 0).any()
+
+
+@pytest.mark.parametrize("case", [c for c in _CASES if c not in _PALLAS_CASES])
+def test_reference_matches_xla_on_kernel_edge_cases(case):
+    """The plain version on the inputs the kernel's design singles out,
+    against the JAX package's XLA event scan (the Pallas kernel searches
+    the whole padded sketch row, so it is held only where ``s == S``)."""
+    from pyfastani_tpu.ops.l2 import l2_chunk_scan
+
+    store, sketch, chunks = _CASES[case]()
+    mh, seqid, wpos = store
+    q, s_sizes = sketch
+    frag, c0, clen, lo, rlen = chunks
+    got = tl2.l2_chunks_reference(*_port(store, sketch, chunks, rmax=896))
+    xla = l2_chunk_scan(q, s_sizes, mh, wpos, np.stack([frag, c0, clen, lo, rlen], axis=1), CMW, 3072)
+    for name, g, x in zip(["best", "first", "last"], got, xla):
+        np.testing.assert_array_equal(g.numpy(), x, err_msg=name)
+    assert (got[0].numpy() > 0).any()
+    if case == "all_anchors":
+        # every live chunk has anchors, so none reports the empty (-1, c0, c0)
+        live = (rlen > 0) & (clen > 0)
+        assert (got[0].numpy()[live] >= 0).all()
 
 
 def test_reference_bounds_search_by_sketch_size():
@@ -162,7 +246,12 @@ def test_l2_chunks_takes_plain_version_on_cpu_only():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case,rmax", [("seed1", 896), ("edge", 896), ("seed2", 8064)])
+@pytest.mark.parametrize(
+    "case,rmax",
+    [("seed1", 896), ("edge", 896), ("seed2", 8064)]
+    + [(c, 896) for c in _CASES if c not in _PALLAS_CASES]
+    + [("fragment_runs", 8064), ("sketch_sizes", 8064), ("repeats_dense", 8064)],
+)
 def test_cuda_kernel_matches_reference(case, rmax):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the L2 kernel is CUDA C++ with no CPU mode)")
