@@ -22,6 +22,7 @@ result:
 4. the query path at a real size (10 random 2 Mbp references, 4 queries
    mutated at 3%): ``Sketch`` -> ``index()`` -> ``Mapper.query_genome``
    and ``Session.query_many``, held against the port's host NumPy engine
+   on a ``Sketch(device="cpu")`` ingested and indexed on its own
    (``Mapper._query_host``, L1 and L2 in NumPy; hits equal, identity
    ``==``), an unrelated query giving ``[]``, and the kernel launch
    count of that run;
@@ -43,7 +44,8 @@ result:
 Phases 4 to 6 each reset the kernel's launch counters before their run
 and fail unless the kernel ran and its plain version did not.  The last
 lines are the card, a JSON object with one entry per kernel (launches
-summed over phases 4 to 6, times and bound at the ``real`` case), and
+summed over phases 4 to 6, times and bound at the ``real`` case, which
+its ``case`` key names), and
 ``{"ok": true, "device": {...}}``.  Imports neither JAX nor anything of
 ``pyfastani_tpu``, and fails if either was loaded.
 """
@@ -409,9 +411,14 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
             f"main path ran the kernel {launches} times and the plain version {plain_calls} times"
         )
 
+    # the oracle ingests and indexes the panel again, on its own
     t0 = time.perf_counter()
+    host_sketch = pt.Sketch(device="cpu")
+    for i, r in enumerate(refs):
+        host_sketch.add_genome(f"ref{i}", r)
+    host_mapper = host_sketch.index()
     for qi, q in enumerate(queries):
-        want = mapper._query_host([q])
+        want = host_mapper._query_host([q])
         if not want or want[0].name != f"ref{qi % N_REFS}":
             raise AssertionError(f"host engine query {qi} gave {want}")
         if hit_key(many[qi]) != hit_key(want):
@@ -419,7 +426,8 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
     t_host = time.perf_counter() - t0
     log(
         f"[4] hits of all {N_QUERIES} queries equal the host NumPy engine "
-        f"(names, matches, fragments, identity ==; host {t_host:.1f} s); "
+        f"of its own ingest and index (names, matches, fragments, identity ==; host "
+        f"ingest, index and queries {t_host:.1f} s); "
         f"unrelated query -> []; kernel launches {launches}, plain-version runs {plain_calls}"
     )
     real = capture_l2_operands(session, batch)
@@ -679,6 +687,7 @@ def main() -> int:
         "source": "pyfastani_tpu_torch/csrc/l2_chunks.cu",
         "replaces": "pyfastani_tpu/ops/l2_pallas.py:119",
         "launches": launches,
+        "case": "real",
         **{k: v for k, v in kern.items() if k != "device_ms"},
     }]}))
     print(json.dumps({"ok": True, "device": {

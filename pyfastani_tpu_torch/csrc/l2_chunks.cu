@@ -364,39 +364,19 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
         // next chunk rebuilds it
         if (k + 1 < L && m_frag[live_slot[k + 1]] != f) clear_table();
 
-        // exclusive prefix of the counts: up to 32 (tile, warp) cells, in
-        // every warp's registers; more, by warp 0 in place
+        // exclusive prefix of the counts, by warp 0 in place
         const int cells = tiles * kWarps;
-        int pre_a = 0, pre_b = 0, n_a, n_b;
-        if (cells <= 32) {
-            const int ca = lane < cells ? counts[0][lane] : 0;
-            const int cb = lane < cells ? counts[1][lane] : 0;
-            int ia = ca, ib = cb;
-            for (int o = 1; o < 32; o <<= 1) {
-                const int ya = __shfl_up_sync(0xffffffffu, ia, o);
-                const int yb = __shfl_up_sync(0xffffffffu, ib, o);
-                if (lane >= o) {
-                    ia += ya;
-                    ib += yb;
-                }
+        if (warp == 0) {
+            const int na = warp_exclusive_scan(counts[0], cells, lane);
+            const int nb = warp_exclusive_scan(counts[1], cells, lane);
+            if (lane == 0) {
+                totals[0] = na;
+                totals[1] = nb;
             }
-            pre_a = ia - ca;
-            pre_b = ib - cb;
-            n_a = __shfl_sync(0xffffffffu, ia, 31);
-            n_b = __shfl_sync(0xffffffffu, ib, 31);
-        } else {
-            if (warp == 0) {
-                const int na = warp_exclusive_scan(counts[0], cells, lane);
-                const int nb = warp_exclusive_scan(counts[1], cells, lane);
-                if (lane == 0) {
-                    totals[0] = na;
-                    totals[1] = nb;
-                }
-            }
-            __syncthreads();
-            n_a = totals[0];
-            n_b = totals[1];
         }
+        __syncthreads();
+        const int n_a = totals[0];
+        const int n_b = totals[1];
 
         // pass 2: write class A in place, class B beside it
         const unsigned lt = (1u << lane) - 1u;
@@ -406,12 +386,10 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
             const bool in = (in_bits >> t) & 1u, cls_b = (b_bits >> t) & 1u;
             const unsigned ua = __ballot_sync(0xffffffffu, in && !cls_b);
             const unsigned ub = __ballot_sync(0xffffffffu, cls_b);
-            const int base_a = cells <= 32 ? __shfl_sync(0xffffffffu, pre_a, cell) : counts[0][cell];
-            const int base_b = cells <= 32 ? __shfl_sync(0xffffffffu, pre_b, cell) : counts[1][cell];
             if (in && !cls_b) {
-                a_pos[base_a + __popc(ua & lt)] = bp[j];
+                a_pos[counts[0][cell] + __popc(ua & lt)] = bp[j];
             } else if (cls_b) {
-                const int off = base_b + __popc(ub & lt);
+                const int off = counts[1][cell] + __popc(ub & lt);
                 b_pos[off] = bp[j];
                 b_st[off] = bv[j] + 1;
             }
