@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, with one NVIDIA Hopper card visible:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ava-genomes N] [--ava-only]
 
 It builds the port's host C extension (``pyfastani_tpu_torch/_native/``)
 and CUDA kernel (``pyfastani_tpu_torch/csrc/``) and runs these phases in
@@ -15,10 +15,13 @@ result:
 3. the L2 chunk kernel against its plain torch version, bitwise (the
    range flag included, also on chunks that leave the store), on CUDA
    tensors: a synthetic ``main`` case at the small batch's budgets, a
-   ``wide`` one at the largest range, and, after phase 4, ``real``: the
-   operands of one L2 sweep of phase 4's small batch.  Each with the
-   kernel's and the plain version's times, the kernel alone in device
-   time (``torch.profiler``), and its bound;
+   ``wide`` one at the largest presized range, a ``huge`` one at
+   ``rmax`` 16128, past shared memory (the kernel's scratch variant),
+   and two captured from the path: after phase 4, ``real``, the operands
+   of one L2 sweep of phase 4's small batch; after phase 10, ``ava``, the
+   first L2 sweep of the all-vs-all.  Each with the kernel's and the
+   plain version's times, the kernel alone in device time
+   (``torch.profiler``), and its bound;
 4. the query path at a real size (10 random 2 Mbp references, 4 queries
    mutated at 3%): ``Sketch`` -> ``index()`` -> ``Mapper.query_genome``
    and ``Session.query_many``, held against the port's host NumPy engine
@@ -39,15 +42,31 @@ result:
    reference, bitwise against the host C winnow, with Mbp/s;
 8. the two-process NCCL mesh (``torch.distributed``, one card per
    process) when there are two cards; otherwise one line says it did not
-   run.
+   run;
+9. budget escalation on the card: phase 4's panel through a ``Session``
+   whose budgets are too small escalates at least twice and gives phase
+   4's hits;
+10. the all-vs-all of ``bench.py`` (`ava_genomes`: 512 genomes, 1408 Mbp,
+    or ``--ava-genomes N``, a multiple of 32) through ``Sketch`` ->
+    ``add_genome`` -> ``index()`` -> ``Session(mapper)`` -> ``warmup()``
+    -> ``query_many`` of every genome, a first pass timed apart and a
+    steady one: step times, Mbp/s, pairs/s, groups, fragments, budgets,
+    escalations and peak device memory; every genome hits exactly the 8
+    genomes of its family and its sibling family, itself at identity 100
+    (4096 hits, as the JAX package returned); g0 and g4 equal the host
+    NumPy engine on the same index (g0 alone when the two would take
+    over 90 s); with four cards, the same on a ``(1, 4)`` mesh, the index
+    split by genome, equal to the one-card hits, else one line says it
+    did not run.
 
-Phases 4 to 6 each reset the kernel's launch counters before their run
-and fail unless the kernel ran and its plain version did not.  The last
-lines are the card, a JSON object with one entry per kernel (launches
-summed over phases 4 to 6, times and bound at the ``real`` case, which
-its ``case`` key names), and
-``{"ok": true, "device": {...}}``.  Imports neither JAX nor anything of
-``pyfastani_tpu``, and fails if either was loaded.
+Phases 4 to 6, 9 and 10 each reset the kernel's launch counters before
+their run and fail unless the kernel ran and its plain version did not.
+The last lines are the card, a JSON object with one entry per kernel
+(launches summed over phases 4 to 6, 9 and 10's steady pass, times and
+bound at the ``real`` case, which its ``case`` key names), and
+``{"ok": true, "device": {...}}``.  ``--ava-only`` runs phases 1, 2, 10
+and the ``ava`` case and prints no result.  Imports neither JAX nor
+anything of ``pyfastani_tpu``, and fails if either was loaded.
 """
 
 from __future__ import annotations
@@ -70,6 +89,9 @@ KERNEL_F, KERNEL_S = 3072, 384  # fragments per pass, sketch budget smax
 KERNEL_N = 50_000  # chunks per pass
 KERNEL_RMAX = 896  # range capacity R - 128 the presizer gives 10 x 2 Mbp
 WIDE_N, WIDE_RMAX = 4096, 8064  # the largest presized range: > 48 KB smem
+# past the card's shared memory (the rmax of a second escalation): the
+# kernel's scratch variant
+HUGE_N, HUGE_RMAX = 2048, 16128
 CMW, CMAX = 2985, 3072  # k = 16, l = 3000
 TIMING_REPS = 10
 # the bound: H100 SXM memory rate, and int32 rate = 132 SMs x 64 INT32
@@ -81,7 +103,20 @@ INT32_OPS_PER_S = 67e12 / 4
 N_REFS, REF_LEN, N_QUERIES, MUT_RATE = 10, 2_000_000, 4, 0.03
 # phase 6: 8 queries in groups of 2
 PIPE_QUERIES, PIPE_Q_CAPACITY, PIPE_FRAG_CAPACITY = 8, 2, 2048
+# the all-vs-all of bench.py: 512 genomes in families of 4 mutants (3%) of
+# an ancestor, every second family descending from the one before at 9%,
+# family lengths cycling 1/2/3/5 Mbp (1408 Mbp); seed 7
+AVA_GENOMES, AVA_FAMILY, AVA_SEED, CROSS_RATE = 512, 4, 7, 0.09
+AVA_LENGTHS = (1_000_000, 2_000_000, 3_000_000, 5_000_000)
+AVA_HITS_PER_GENOME = 2 * AVA_FAMILY  # its own family and its sibling family
 NCCL_TIMEOUT = 300
+# phase 9: budgets small enough that phase 4's panel escalates (the tiny
+# budgets of tests/test_torch_sharded.py would still overflow hmax after
+# the session's six attempts on 2 Mbp genomes)
+ESCALATE_BUDGETS = dict(hmax=32, ivmax=1, t_chunks=4, smax=128)
+# phase 10: the host engine's check of g0 and g4 keeps g0 alone when the
+# two would take longer than this
+ORACLE_SECONDS = 90.0
 
 
 def log(msg: str) -> None:
@@ -204,7 +239,7 @@ def kernel_work(args) -> dict:
 
 
 def kernel_device_ms(fn, args, reps: int = 20) -> float:
-    """Device time of `l2_chunks_kernel` alone per call, from a
+    """Device time of the L2 kernel (either variant) alone per call, from a
     ``torch.profiler`` trace of ``reps`` calls."""
     import torch
     from torch.autograd import DeviceType
@@ -219,7 +254,7 @@ def kernel_device_ms(fn, args, reps: int = 20) -> float:
     total = sum(
         e.self_device_time_total
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and "l2_chunks_kernel" in e.key
+        if e.device_type == DeviceType.CUDA and "l2_chunks" in e.key
     )
     return total / 1e3 / reps
 
@@ -275,13 +310,17 @@ def check_kernel(name: str, args, gpu: str) -> dict:
 
 def phase_kernel(device, gpu: str) -> None:
     rng = np.random.default_rng(11)
-    for name, n, rmax in (("main", KERNEL_N, KERNEL_RMAX), ("wide", WIDE_N, WIDE_RMAX)):
+    for name, n, rmax in (
+        ("main", KERNEL_N, KERNEL_RMAX),
+        ("wide", WIDE_N, WIDE_RMAX),
+        ("huge (the scratch variant)", HUGE_N, HUGE_RMAX),
+    ):
         check_kernel(name, kernel_case(rng, n, rmax, device), gpu)
 
 
 def capture_l2_operands(session, batch):
-    """The operands of the first `l2_chunks` call of one
-    ``session.query_many(batch)``, cloned."""
+    """``(hits, operands)``: one ``session.query_many(batch)`` and the
+    operands of its first `l2_chunks` call, cloned."""
     import torch
 
     from pyfastani_tpu_torch import session as session_module
@@ -296,10 +335,10 @@ def capture_l2_operands(session, batch):
 
     session_module.l2_chunks = capture
     try:
-        session.query_many(batch)
+        hits = session.query_many(batch)
     finally:
         session_module.l2_chunks = original
-    return captured[0]
+    return hits, captured[0]
 
 
 def mutate(rng, base: np.ndarray, rate: float) -> np.ndarray:
@@ -307,6 +346,33 @@ def mutate(rng, base: np.ndarray, rate: float) -> np.ndarray:
     idx = rng.random(arr.shape[0]) < rate
     arr[idx] = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=int(idx.sum()))
     return arr
+
+
+def ava_genomes(n_genomes: int, lengths=AVA_LENGTHS):
+    """The all-vs-all panel of ``bench.py::_ava_genomes``, byte for byte:
+    ``n_genomes`` genomes in families of `AVA_FAMILY` mutants of a shared
+    ancestor; every odd family's ancestor is the even family's mutated at
+    `CROSS_RATE`, and the pairs of families cycle through ``lengths``."""
+    rng = np.random.default_rng(AVA_SEED)
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    out = []
+    prev_base = None
+    for fam in range(-(-n_genomes // AVA_FAMILY)):
+        if fam % 2 == 1 and prev_base is not None:
+            base = mutate(rng, prev_base, CROSS_RATE)
+        else:
+            base = rng.choice(alphabet, size=lengths[(fam // 2) % len(lengths)])
+        prev_base = base
+        for _ in range(min(AVA_FAMILY, n_genomes - len(out))):
+            out.append(mutate(rng, base, MUT_RATE).tobytes())
+    return out
+
+
+def ava_expected(i: int):
+    """The names genome ``i`` of `ava_genomes` hits: the 8 genomes of its
+    family and of its sibling family."""
+    pair = (i // AVA_FAMILY) // 2
+    return {f"g{j}" for j in range(2 * AVA_FAMILY * pair, 2 * AVA_FAMILY * (pair + 1))}
 
 
 def genomes():
@@ -430,7 +496,7 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         f"ingest, index and queries {t_host:.1f} s); "
         f"unrelated query -> []; kernel launches {launches}, plain-version runs {plain_calls}"
     )
-    real = capture_l2_operands(session, batch)
+    _, real = capture_l2_operands(session, batch)
     return mapper, many, launches, real
 
 
@@ -563,6 +629,213 @@ def phase_ingest(gpu: str, refs) -> None:
     )
 
 
+def phase_escalation(gpu: str, mapper, queries, want) -> int:
+    """Phase 4's panel through a `Session` whose budgets are too small:
+    the session doubles the blown budgets and runs the batch again, at
+    least twice, and gives phase 4's hits.  Returns the kernel launches."""
+    import warnings
+
+    import torch
+
+    from pyfastani_tpu_torch.session import Session
+
+    session = Session(mapper, **ESCALATE_BUDGETS)
+    batch = [[q] for q in queries[:N_QUERIES]]
+
+    def run():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            hits = session.query_many(batch)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        steps = [
+            str(w.message).split("escalating ", 1)[1]
+            for w in caught if "escalating" in str(w.message)
+        ]
+        return hits, steps, took
+
+    (hits, steps, took), launches = counted(run)
+    n = session.stats["budget_escalations"]
+    if n < 2 or len(steps) != n:
+        raise AssertionError(f"expected at least two escalations, got {n}: {steps}")
+    for qi, (a, b) in enumerate(zip(hits, want)):
+        if hit_key(a) != hit_key(b):
+            raise AssertionError(f"escalated query {qi}: {a} != phase 4 {b}")
+    log(
+        f"[9] escalation on the card: phase 4's panel from budgets {ESCALATE_BUDGETS} "
+        f"escalated {n} times ({'; '.join(steps)}) to {session.budgets} in {took:.3f} s; "
+        f"hits equal phase 4; kernel launches {launches}, plain-version runs 0 ({gpu})"
+    )
+    return launches
+
+
+def check_ava_hits(hits, n_genomes: int, where: str) -> None:
+    """Every genome hits exactly its family and its sibling family, itself
+    at identity 100: `AVA_HITS_PER_GENOME` hits each."""
+    total = sum(len(h) for h in hits)
+    if total != AVA_HITS_PER_GENOME * n_genomes:
+        raise AssertionError(f"{where}: {total} hits, expected {AVA_HITS_PER_GENOME * n_genomes}")
+    for i, h in enumerate(hits):
+        names = [x.name for x in h]
+        if sorted(names) != sorted(ava_expected(i)):
+            raise AssertionError(f"{where}: g{i} hits {names}, expected {sorted(ava_expected(i))}")
+        self_hit = [x.identity for x in h if x.name == f"g{i}"]
+        if self_hit != [100.0]:
+            raise AssertionError(f"{where}: g{i} self-hit identity {self_hit}, expected [100.0]")
+
+
+def phase_ava(gpu: str, n_genomes: int):
+    """The all-vs-all of ``bench.py`` through the user's entry points on
+    one card: ``Sketch`` -> ``add_genome`` x N -> ``index()`` ->
+    ``Session(mapper)`` -> ``warmup()`` -> ``query_many`` of every genome,
+    twice (the first pass timed apart; it also captures the operands of
+    its first L2 sweep, one clone on the card).  Then the host NumPy
+    engine on g0 and g4, and the four-card (1, 4) mesh when there are four
+    cards.  Returns the kernel launches of the steady pass and the
+    captured operands."""
+    import torch
+
+    import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch.session import Session
+
+    t0 = time.perf_counter()
+    genomes = ava_genomes(n_genomes)
+    t_gen = time.perf_counter() - t0
+    qbp = sum(len(g) for g in genomes)
+    t0 = time.perf_counter()
+    sketch = pt.Sketch()
+    for i, g in enumerate(genomes):
+        sketch.add_genome(f"g{i}", g)
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mapper = sketch.index()
+    t_index = time.perf_counter() - t0
+    log(
+        f"[10] all-vs-all panel: {n_genomes} genomes (families of {AVA_FAMILY}, "
+        f"lengths {'/'.join(str(n // 10**6) for n in AVA_LENGTHS)} Mbp), {qbp} bp; generated in "
+        f"{t_gen:.3f} s, ingested (host C winnow) in {t_ingest:.3f} s, indexed in "
+        f"{t_index:.3f} s: {mapper._index.n_minimizers} minimizers ({gpu})"
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = Session(mapper)
+    torch.cuda.synchronize()
+    t_park = time.perf_counter() - t0
+    parked = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    session.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    batch = [[g] for g in genomes]
+    before = dict(session.stats)
+
+    def first_run():
+        t0 = time.perf_counter()
+        hits, operands = capture_l2_operands(session, batch)
+        torch.cuda.synchronize()
+        return hits, operands, time.perf_counter() - t0
+
+    (first, operands, t_first), launches_first = counted(first_run)
+    ran = {k: session.stats[k] - before[k] for k in before}
+    peak_first = torch.cuda.max_memory_allocated()
+
+    def steady_run():
+        t0 = time.perf_counter()
+        hits = session.query_many(batch)
+        torch.cuda.synchronize()
+        return hits, time.perf_counter() - t0
+
+    (steady, t_steady), launches = counted(steady_run)
+    peak = torch.cuda.max_memory_allocated()
+    if [hit_key(h) for h in steady] != [hit_key(h) for h in first]:
+        raise AssertionError("all-vs-all: the steady pass differs from the first")
+    check_ava_hits(first, n_genomes, "all-vs-all")
+    pairs = n_genomes * n_genomes
+    log(
+        f"[10] Session park {t_park:.3f} s ({parked / 2**30:.3f} GiB on the card), warmup "
+        f"{t_warm:.3f} s; query_many first {t_first:.3f} s = {qbp / 1e6 / t_first:.2f} Mbp/s = "
+        f"{pairs / t_first:.1f} pairs/s, steady {t_steady:.3f} s = {qbp / 1e6 / t_steady:.2f} "
+        f"Mbp/s = {pairs / t_steady:.1f} pairs/s ({gpu}); per query_many: "
+        f"{ran['dispatches']} groups dispatched, {ran['fragments_dispatched']} fragments "
+        f"dispatched and {ran['fragments_padded']} padded, escalations "
+        f"{ran['budget_escalations']}; budgets {session.budgets}; kernel launches "
+        f"{launches_first} first, {launches} steady, plain-version runs 0; peak device memory "
+        f"{peak_first / 2**30:.3f} GiB after the first pass, {peak / 2**30:.3f} GiB after the "
+        f"steady one"
+    )
+    log(
+        f"[10] {sum(len(h) for h in first)} hits, equal in both passes: every genome hits "
+        f"exactly the {AVA_HITS_PER_GENOME} genomes of its family and its sibling family, "
+        f"itself at identity 100.0"
+    )
+
+    t0 = time.perf_counter()
+    checked, note = [], ""
+    for gi in (0, AVA_FAMILY):
+        spent = time.perf_counter() - t0
+        if checked and 2 * spent > ORACLE_SECONDS:
+            note = (f"; g{gi} not checked: g0 alone took {spent:.1f} s, so the two would "
+                    f"pass {ORACLE_SECONDS:.0f} s")
+            break
+        want = mapper._query_host([genomes[gi]])
+        if hit_key(first[gi]) != hit_key(want):
+            raise AssertionError(f"all-vs-all g{gi}: port {first[gi]} != host engine {want}")
+        checked.append(f"g{gi}")
+    log(
+        f"[10] {' and '.join(checked)} equal the host NumPy engine on the same index (names, "
+        f"matches, fragments, identity ==) in {time.perf_counter() - t0:.1f} s{note}"
+    )
+
+    del session
+    torch.cuda.empty_cache()
+    phase_ava_four_cards(gpu, mapper, batch, first)
+    return launches, operands
+
+
+def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
+    """The all-vs-all on a (1, 4) mesh over four cards, the index split by
+    genome (``build_sharded_index(mapper, 4)``): one pass, hits equal the
+    one-card run."""
+    import torch
+
+    from pyfastani_tpu_torch.parallel.mesh import make_mesh
+    from pyfastani_tpu_torch.parallel.sharded import ShardedSession
+
+    n_dev = torch.cuda.device_count()
+    if n_dev < 4:
+        log(f"[10] four-card (1, 4) all-vs-all: not run, it needs four cards ({n_dev} visible)")
+        return
+    devices = [f"cuda:{i}" for i in range(4)]
+
+    def sync():
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    session = ShardedSession(mapper, make_mesh(1, 4, devices=devices))
+    sync()
+    t_park = time.perf_counter() - t0
+
+    def run():
+        t0 = time.perf_counter()
+        hits = session.query_many(batch)
+        sync()
+        return hits, time.perf_counter() - t0
+
+    (hits, took), launches = counted(run)
+    if [hit_key(h) for h in hits] != [hit_key(h) for h in want]:
+        raise AssertionError("four-card (1, 4) all-vs-all differs from the one-card run")
+    qbp = sum(len(g[0]) for g in batch)
+    log(
+        f"[10] four-card (1, 4) all-vs-all, index split by genome: hits equal the one-card "
+        f"run; shard build and park {t_park:.3f} s, query_many {took:.3f} s = "
+        f"{qbp / 1e6 / took:.2f} Mbp/s; budgets {session.budgets}; kernel launches {launches}, "
+        f"plain-version runs 0 ({gpu})"
+    )
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -637,8 +910,19 @@ def nccl_child(rank: int, port: str, work: str) -> int:
     return 0
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ava-genomes", type=int, default=AVA_GENOMES,
+                    help="genomes of the all-vs-all (a multiple of 32)")
+    ap.add_argument("--ava-only", action="store_true",
+                    help="run phases 1, 2, 10 and 3's ava case only, and print no result")
+    args = ap.parse_args(argv)
+    if args.ava_genomes <= 0 or args.ava_genomes % 32:
+        ap.error("--ava-genomes must be a positive multiple of 32")
 
     log(
         f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -665,20 +949,28 @@ def main() -> int:
         f"and loaded in {took:.1f} s; ptxas: {' | '.join(ptxas)}")
 
     device = torch.device("cuda", 0)
-    phase_kernel(device, gpu)
-    refs, queries, unrelated = genomes()
-    mapper, many, launches, real = phase_query(gpu, refs, queries, unrelated)
-    kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
-    launches += phase_mesh(gpu, mapper, queries, many)
-    launches += phase_pipeline(gpu, mapper, queries)
-    phase_ingest(gpu, refs)
-    phase_nccl(gpu, mapper, queries[0], many[0])
+    if not args.ava_only:
+        phase_kernel(device, gpu)
+        refs, queries, unrelated = genomes()
+        mapper, many, launches, real = phase_query(gpu, refs, queries, unrelated)
+        kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
+        launches += phase_mesh(gpu, mapper, queries, many)
+        launches += phase_pipeline(gpu, mapper, queries)
+        phase_ingest(gpu, refs)
+        phase_nccl(gpu, mapper, queries[0], many[0])
+        launches += phase_escalation(gpu, mapper, queries, many)
+        del mapper, real
+    ava_launches, ava_ops = phase_ava(gpu, args.ava_genomes)
+    check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
     loaded = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")
     )
     if loaded:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {loaded}")
+    if args.ava_only:
+        log("ava-only run: done")
+        return 0
 
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -686,7 +978,7 @@ def main() -> int:
         "route": "cuda",
         "source": "pyfastani_tpu_torch/csrc/l2_chunks.cu",
         "replaces": "pyfastani_tpu/ops/l2_pallas.py:119",
-        "launches": launches,
+        "launches": launches + ava_launches,
         "case": "real",
         **{k: v for k, v in kern.items() if k != "device_ms"},
     }]}))
@@ -701,4 +993,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--nccl-rank"]:
         sys.exit(nccl_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

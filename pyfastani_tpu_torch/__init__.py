@@ -22,6 +22,7 @@ builds its host C extension (``_native``) and its CUDA library
 (``_build``) at first use.
 """
 
+from ._version import __version__
 from .models._params import MAX_KMER_SIZE
 from .models._types import (
     Hit,

@@ -87,18 +87,19 @@ def load_library() -> ctypes.CDLL:
         _compile(path)
     lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.l2_chunks_smem_bytes.argtypes = [i32, i32]
-    lib.l2_chunks_smem_bytes.restype = i64
-    lib.l2_chunks_smem_limit.argtypes = [i32, i32]
-    lib.l2_chunks_smem_limit.restype = i64
-    lib.l2_chunks_error_string.argtypes = [i32]
-    lib.l2_chunks_error_string.restype = ctypes.c_char_p
-    lib.l2_chunks_launch.argtypes = [
+    operands = [
         ptr, ptr, i32,  # q, s_sizes, S
         ptr, ptr, ptr,  # mini_hash, mini_wpos, mini_prev
         ptr, ptr, ptr, ptr, ptr, i32,  # lo, rlen, frag, c0, clen, N
         i32, i32, i32, i32,  # cmw, rmax, M, F
-        ptr, ptr, ptr, ptr, ptr,  # best, first, last, range_bad, stream
+        ptr, ptr, ptr, ptr,  # best, first, last, range_bad
     ]
+    lib.l2_chunks_error_string.argtypes = [i32]
+    lib.l2_chunks_error_string.restype = ctypes.c_char_p
+    lib.l2_chunks_scratch_words.argtypes = [i32, i32, i32, i32]  # device, S, rmax, N
+    lib.l2_chunks_scratch_words.restype = i64
+    lib.l2_chunks_launch.argtypes = operands + [ptr]  # stream
     lib.l2_chunks_launch.restype = i32
+    lib.l2_chunks_launch_scratch.argtypes = operands + [ptr, i64, ptr]  # scratch, words, stream
+    lib.l2_chunks_launch_scratch.restype = i32
     return lib

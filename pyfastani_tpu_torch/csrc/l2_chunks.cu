@@ -59,9 +59,19 @@
 //     small, because the session compacts live chunks to the front of the
 //     budget: a long span would leave them to a few blocks.
 //   * Blocks are 256 threads, or 512 above 2048 range entries.
+//   * Above the card's opt-in shared memory (rmax past ~11k entries at
+//     S = 384: a second rmax escalation), a variant of the same kernel,
+//     l2_chunks_scratch_kernel, keeps the range planes, class B and the
+//     sort area in a global scratch buffer that the wrapper allocates;
+//     the hash set and the sketch row stay in shared memory.  A
+//     persistent grid of resident blocks loops over the spans, each
+//     block owning one slice of the scratch, and compacts tile by tile
+//     with a running offset, so a range has no length limit.  It is
+//     rare and simple, not tuned.
 // The block reduction of (best, first, last) is integer max/min, so the
 // result does not depend on the order in which threads finish.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -199,6 +209,114 @@ __device__ __forceinline__ void load_chunk(int* buf, int rmax,
     cp_async_commit();
 }
 
+// metadata of the kSpan slots from i0, by warp 0: writes the output of
+// every empty or refused slot at once and lists the live ones in order
+__device__ __forceinline__ void span_metadata(
+    int i0, int lane, const int* __restrict__ s_sizes, int S,
+    const int* __restrict__ lo_arr, const int* __restrict__ rlen_arr,
+    const int* __restrict__ frag_arr, const int* __restrict__ c0_arr,
+    const int* __restrict__ clen_arr, int N, int rmax, int M, int F,
+    int* __restrict__ best_out, int* __restrict__ first_out, int* __restrict__ last_out,
+    int* __restrict__ range_bad, int* m_lo, int* m_n, int* m_frag, int* m_c0, int* m_clen,
+    int* m_seff, int* live_slot, int* n_live) {
+    const int i = i0 + lane;
+    bool live = false;
+    if (lane < kSpan && i < N) {
+        const int c0 = c0_arr[i];
+        const int clen = clen_arr[i];
+        const int n = min(rlen_arr[i], rmax);
+        const int f = frag_arr[i];
+        const int64_t base = lo_arr[i];
+        const bool bad = base < 0 || base + max(n, 0) > M || f < 0 || f >= F;
+        live = !bad && n > 0 && clen > 0;
+        m_lo[lane] = static_cast<int>(base);
+        m_n[lane] = n;
+        m_frag[lane] = f;
+        m_c0[lane] = c0;
+        m_clen[lane] = clen;
+        m_seff[lane] = live ? max(min(s_sizes[f], S), 0) : 0;
+        if (!live) {
+            best_out[i] = -1;
+            first_out[i] = c0;
+            last_out[i] = c0;
+            if (bad) *range_bad = 1;  // every writer stores the same value
+        }
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, live);
+    if (live) live_slot[__popc(mask & ((1u << lane) - 1u))] = lane;
+    if (lane == 0) *n_live = __popc(mask);
+}
+
+// the hash set of a sketch row: open addressing over T = 2^log_t slots;
+// a key equal to the empty marker raises a flag instead
+__device__ __forceinline__ void set_insert(uint32_t* table, int log_t, int T, uint32_t h,
+                                           int* has_umax) {
+    if (h == kEmpty) {
+        *has_umax = 1;
+        return;
+    }
+    uint32_t at = slot_of(h, log_t);
+    while (true) {
+        const uint32_t old = atomicCAS(table + at, kEmpty, h);
+        if (old == kEmpty || old == h) return;
+        at = (at + 1) & (T - 1);
+    }
+}
+
+__device__ __forceinline__ bool set_contains(const uint32_t* table, int log_t, int T,
+                                             uint32_t h, int has_umax) {
+    if (h == kEmpty) return has_umax != 0;
+    uint32_t at = slot_of(h, log_t);
+    while (true) {
+        const uint32_t e = table[at];
+        if (e == h) return true;
+        if (e == kEmpty) return false;
+        at = (at + 1) & (T - 1);
+    }
+}
+
+// one chunk's (best, first, last) from its compacted entries: each anchor
+// in [c0, c_end) counts #{A: p_j in [p_a, p_a + cmw - 1]} +
+// #{B: start_j <= p_a} - #{B: p_j < p_a}; reduced over the block into
+// the output of chunk i by thread 0.  Ends with a barrier after which no
+// thread reads the range buffer.
+template <int kThreads>
+__device__ __forceinline__ void score_anchors(const int* bp, int n, int c0, int64_t c_end,
+                                              int cmw, const int* a_pos, int n_a,
+                                              const int* b_pos, const int* b_st, int n_b,
+                                              int tid, int lane, int warp, Best* warp_best,
+                                              int i, int* __restrict__ best_out,
+                                              int* __restrict__ first_out,
+                                              int* __restrict__ last_out) {
+    constexpr int kWarps = kThreads / 32;
+    Best mine{-1, kBig, -kBig};
+    for (int j = tid; j < n; j += kThreads) {
+        const int pa = bp[j];
+        if (pa < c0 || pa >= c_end) continue;
+        const int reach = static_cast<int>(
+            min(static_cast<int64_t>(pa) + (cmw - 1), static_cast<int64_t>(kIntMax)));
+        const int count = count_le(a_pos, n_a, reach) - count_lt(a_pos, n_a, pa) +
+                          count_le(b_st, n_b, pa) - count_lt(b_pos, n_b, pa);
+        mine = merge(mine, Best{count, pa, pa});
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        Best other{__shfl_down_sync(0xffffffffu, mine.best, o),
+                   __shfl_down_sync(0xffffffffu, mine.first, o),
+                   __shfl_down_sync(0xffffffffu, mine.last, o)};
+        mine = merge(mine, other);
+    }
+    if (lane == 0) warp_best[warp] = mine;
+    __syncthreads();  // also: every read of the range buffer is done
+    if (tid == 0) {
+        Best all = warp_best[0];
+        for (int w = 1; w < kWarps; ++w) all = merge(all, warp_best[w]);
+        const bool none = all.best < 0;
+        best_out[i] = all.best;
+        first_out[i] = none ? c0 : all.first;
+        last_out[i] = none ? c0 : all.last;
+    }
+}
+
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 8 : 2)
 l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes,
@@ -226,35 +344,10 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
     const int warp = tid >> 5;
     const int i0 = blockIdx.x * kSpan;
 
-    // metadata of the block's slots: warp 0 reads them, writes the output
-    // of every empty or refused slot and lists the live ones in order
     if (warp == 0) {
-        const int i = i0 + lane;
-        bool live = false;
-        if (lane < kSpan && i < N) {
-            const int c0 = c0_arr[i];
-            const int clen = clen_arr[i];
-            const int n = min(rlen_arr[i], rmax);
-            const int f = frag_arr[i];
-            const int64_t base = lo_arr[i];
-            const bool bad = base < 0 || base + max(n, 0) > M || f < 0 || f >= F;
-            live = !bad && n > 0 && clen > 0;
-            m_lo[lane] = static_cast<int>(base);
-            m_n[lane] = n;
-            m_frag[lane] = f;
-            m_c0[lane] = c0;
-            m_clen[lane] = clen;
-            m_seff[lane] = live ? max(min(s_sizes[f], S), 0) : 0;
-            if (!live) {
-                best_out[i] = -1;
-                first_out[i] = c0;
-                last_out[i] = c0;
-                if (bad) *range_bad = 1;  // every writer stores the same value
-            }
-        }
-        const unsigned mask = __ballot_sync(0xffffffffu, live);
-        if (live) live_slot[__popc(mask & ((1u << lane) - 1u))] = lane;
-        if (lane == 0) n_live = __popc(mask);
+        span_metadata(i0, lane, s_sizes, S, lo_arr, rlen_arr, frag_arr, c0_arr, clen_arr, N,
+                      rmax, M, F, best_out, first_out, last_out, range_bad, m_lo, m_n, m_frag,
+                      m_c0, m_clen, m_seff, live_slot, &n_live);
     }
     __syncthreads();
     const int L = n_live;
@@ -303,19 +396,8 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
         // to the empty marker is a flag instead
         if (f != cur_frag) {
             const uint32_t* row = reinterpret_cast<const uint32_t*>(buf + 3 * rmax);
-            for (int t = tid; t < m_seff[slot]; t += kThreads) {
-                const uint32_t h = row[t];
-                if (h == kEmpty) {
-                    has_umax = 1;
-                    continue;
-                }
-                uint32_t at = slot_of(h, log_t);
-                while (true) {
-                    const uint32_t old = atomicCAS(table + at, kEmpty, h);
-                    if (old == kEmpty || old == h) break;
-                    at = (at + 1) & (T - 1);
-                }
-            }
+            for (int t = tid; t < m_seff[slot]; t += kThreads)
+                set_insert(table, log_t, T, row[t], &has_umax);
             cur_frag = f;
             __syncthreads();
         }
@@ -332,21 +414,7 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
             const int j = t * kThreads + tid;
             bool in = false, cls_b = false;
             if (j < n) {
-                const uint32_t h = bh[j];
-                if (h == kEmpty) {
-                    in = has_umax != 0;
-                } else {
-                    uint32_t at = slot_of(h, log_t);
-                    while (true) {
-                        const uint32_t e = table[at];
-                        if (e == h) {
-                            in = true;
-                            break;
-                        }
-                        if (e == kEmpty) break;
-                        at = (at + 1) & (T - 1);
-                    }
-                }
+                in = set_contains(table, log_t, T, bh[j], has_umax);
                 cls_b = in && static_cast<int64_t>(bv[j]) + 1 >
                                   static_cast<int64_t>(bp[j]) - (cmw - 1);
             }
@@ -408,33 +476,147 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
             __syncthreads();
         }
 
-        // each anchor: binary searches
-        Best mine{-1, kBig, -kBig};
-        for (int j = tid; j < n; j += kThreads) {
-            const int pa = bp[j];
-            if (pa < c0 || pa >= c_end) continue;
-            const int reach = static_cast<int>(
-                min(static_cast<int64_t>(pa) + (cmw - 1), static_cast<int64_t>(kIntMax)));
-            const int count = count_le(a_pos, n_a, reach) - count_lt(a_pos, n_a, pa) +
-                              count_le(b_st, n_b, pa) - count_lt(b_pos, n_b, pa);
-            mine = merge(mine, Best{count, pa, pa});
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-            Best other{__shfl_down_sync(0xffffffffu, mine.best, o),
-                       __shfl_down_sync(0xffffffffu, mine.first, o),
-                       __shfl_down_sync(0xffffffffu, mine.last, o)};
-            mine = merge(mine, other);
-        }
-        if (lane == 0) warp_best[warp] = mine;
-        __syncthreads();  // also: every read of the range buffer is done
+        // each anchor: binary searches; the barrier at their end frees the
+        // range buffer for the next chunk's loads
+        score_anchors<kThreads>(bp, n, c0, c_end, cmw, a_pos, n_a, b_pos, b_st, n_b, tid, lane,
+                                warp, warp_best, i, best_out, first_out, last_out);
         if (k + 1 < L) stage(k + 1);
-        if (tid == 0) {
-            Best all = warp_best[0];
-            for (int w = 1; w < kWarps; ++w) all = merge(all, warp_best[w]);
-            const bool none = all.best < 0;
-            best_out[i] = all.best;
-            first_out[i] = none ? c0 : all.first;
-            last_out[i] = none ? c0 : all.last;
+    }
+}
+
+// The variant for ranges past the shared memory: a chunk's range planes,
+// class B's positions and the sort area live in this block's slice of a
+// global scratch buffer (scratch_words_per_block words); the hash set and
+// the sketch row stay in shared memory.  A persistent grid: each resident
+// block loops over the spans of kSpan slots.  Compaction goes tile by
+// tile with a running offset, so a range may be of any length.  Global
+// writes of one thread reach the others of its block at a barrier.
+constexpr int kScratchThreads = 512;
+
+__host__ __device__ __forceinline__ long long scratch_words_per_block(int rmax) {
+    return 4LL * rmax + pow2_at_least(max(rmax, 1));
+}
+
+__global__ void __launch_bounds__(kScratchThreads, 2)
+l2_chunks_scratch_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes,
+                         int S, const uint32_t* __restrict__ mini_hash,
+                         const int* __restrict__ mini_wpos,
+                         const int* __restrict__ mini_prev,
+                         const int* __restrict__ lo_arr, const int* __restrict__ rlen_arr,
+                         const int* __restrict__ frag_arr, const int* __restrict__ c0_arr,
+                         const int* __restrict__ clen_arr, int N, int cmw, int rmax, int M,
+                         int F, int* __restrict__ best_out,
+                         int* __restrict__ first_out, int* __restrict__ last_out,
+                         int* __restrict__ range_bad, int* __restrict__ scratch) {
+    constexpr int kThreads = kScratchThreads;
+    constexpr int kWarps = kThreads / 32;
+    extern __shared__ int smem[];
+    __shared__ int m_lo[kSpan], m_n[kSpan], m_frag[kSpan], m_c0[kSpan], m_clen[kSpan];
+    __shared__ int m_seff[kSpan], live_slot[kSpan];
+    __shared__ int n_live;
+    __shared__ int counts[2][kWarps];  // class A, B per warp of one tile
+    __shared__ Best warp_best[kWarps];
+    __shared__ int has_umax;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const unsigned lt = (1u << lane) - 1u;
+    const int T = table_slots(S);
+    int log_t = 0;
+    while ((1 << log_t) < T) ++log_t;
+    uint32_t* table = reinterpret_cast<uint32_t*>(smem);
+    uint32_t* row = table + T;
+    int* buf = scratch + static_cast<int64_t>(blockIdx.x) * scratch_words_per_block(rmax);
+    int* bh = buf;                  // hash plane, then class A positions in place
+    int* bp = buf + rmax;           // wpos plane
+    int* bv = buf + 2 * rmax;       // prev plane
+    int* b_pos = buf + 3 * rmax;    // class B positions, ascending
+    int* b_st = b_pos + rmax;       // class B starts, then sorted
+
+    const int n_spans = (N + kSpan - 1) / kSpan;
+    for (int span = blockIdx.x; span < n_spans; span += gridDim.x) {
+        __syncthreads();  // the span before is done with the metadata
+        if (warp == 0) {
+            span_metadata(span * kSpan, lane, s_sizes, S, lo_arr, rlen_arr, frag_arr, c0_arr,
+                          clen_arr, N, rmax, M, F, best_out, first_out, last_out, range_bad,
+                          m_lo, m_n, m_frag, m_c0, m_clen, m_seff, live_slot, &n_live);
+        }
+        __syncthreads();
+        const int L = n_live;
+        int cur_frag = -1;
+        for (int k = 0; k < L; ++k) {
+            const int slot = live_slot[k];
+            const int i = span * kSpan + slot;
+            const int n = m_n[slot];
+            const int f = m_frag[slot];
+            const int c0 = m_c0[slot];
+            const int64_t c_end = static_cast<int64_t>(c0) + m_clen[slot];
+            const int64_t base = m_lo[slot];
+            for (int j = tid; j < n; j += kThreads) {
+                bh[j] = static_cast<int>(mini_hash[base + j]);
+                bp[j] = mini_wpos[base + j];
+                bv[j] = mini_prev[base + j];
+            }
+            if (f != cur_frag) {  // the fragment's sketch row and hash set
+                for (int t = tid; t < T; t += kThreads) table[t] = kEmpty;
+                for (int t = tid; t < m_seff[slot]; t += kThreads)
+                    row[t] = q[static_cast<int64_t>(f) * S + t];
+                if (tid == 0) has_umax = 0;
+                __syncthreads();
+                for (int t = tid; t < m_seff[slot]; t += kThreads)
+                    set_insert(table, log_t, T, row[t], &has_umax);
+                cur_frag = f;
+            }
+            __syncthreads();  // the planes and the set are in place
+
+            // membership and class, compacted tile by tile: class A in place
+            // over the hash plane (its slot never passes the entry's), class
+            // B beside it
+            int n_a = 0, n_b = 0;
+            for (int j0 = 0; j0 < n; j0 += kThreads) {
+                const int j = j0 + tid;
+                bool in = false, cls_b = false;
+                int p = 0, v = 0;
+                if (j < n) {
+                    p = bp[j];
+                    v = bv[j];
+                    in = set_contains(table, log_t, T, static_cast<uint32_t>(bh[j]), has_umax);
+                    cls_b = in && static_cast<int64_t>(v) + 1 >
+                                      static_cast<int64_t>(p) - (cmw - 1);
+                }
+                const unsigned ua = __ballot_sync(0xffffffffu, in && !cls_b);
+                const unsigned ub = __ballot_sync(0xffffffffu, cls_b);
+                if (lane == 0) {
+                    counts[0][warp] = __popc(ua);
+                    counts[1][warp] = __popc(ub);
+                }
+                __syncthreads();  // every hash of this tile is read
+                int off_a = n_a, off_b = n_b;
+                for (int w = 0; w < kWarps; ++w) {
+                    if (w < warp) {
+                        off_a += counts[0][w];
+                        off_b += counts[1][w];
+                    }
+                    n_a += counts[0][w];
+                    n_b += counts[1][w];
+                }
+                if (in && !cls_b) {
+                    bh[off_a + __popc(ua & lt)] = p;
+                } else if (cls_b) {
+                    const int off = off_b + __popc(ub & lt);
+                    b_pos[off] = p;
+                    b_st[off] = v + 1;
+                }
+                __syncthreads();  // the counts are read before the next tile
+            }
+            const int P = pow2_at_least(n_b);
+            for (int t = n_b + tid; t < P; t += kThreads) b_st[t] = kIntMax;
+            __syncthreads();
+            if (P > 1) bitonic(b_st, P, tid, kThreads, []() { __syncthreads(); });
+
+            score_anchors<kThreads>(bp, n, c0, c_end, cmw, bh, n_a, b_pos, b_st, n_b, tid, lane,
+                                    warp, warp_best, i, best_out, first_out, last_out);
         }
     }
 }
@@ -457,42 +639,48 @@ cudaError_t launch(int grid, long long smem, cudaStream_t stream, const uint32_t
     return cudaGetLastError();
 }
 
-template <int kThreads>
-long long static_smem(void) {
-    cudaFuncAttributes attr;
-    if (cudaFuncGetAttributes(&attr, l2_chunks_kernel<kThreads>) != cudaSuccess) return -1;
-    return static_cast<long long>(attr.sharedSizeBytes);
-}
-
 }  // namespace
 
 extern "C" {
-
-// Dynamic shared memory one block needs for a sketch width S and a range
-// capacity rmax.
-long long l2_chunks_smem_bytes(int S, int rmax) {
-    return 4LL * smem_words(S, rmax);
-}
-
-// Largest dynamic shared memory a block of the kernel that serves `rmax`
-// may opt into on `device` (the opt-in limit less its static shared
-// memory).
-long long l2_chunks_smem_limit(int device, int rmax) {
-    int v = 0;
-    if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-        cudaSuccess)
-        return 0;
-    const long long st = rmax > kWideRange ? static_smem<512>() : static_smem<256>();
-    return st < 0 ? 0 : v - st;
-}
 
 const char* l2_chunks_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches one block per kSpan chunk slots on `stream`; returns
-// cudaGetLastError().  `range_bad` is one int the caller zeroed; M is the
-// store length and F the number of sketch rows.
+// 0 when the shared-memory kernel serves a sketch width S and range
+// capacity rmax on `device`; otherwise the int32 words of global scratch
+// that l2_chunks_launch_scratch needs for N chunk slots: one slice per
+// resident block of the persistent grid.  Negative on a CUDA error.
+long long l2_chunks_scratch_words(int device, int S, int rmax, int N) {
+    int optin = 0, sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+        return -1;
+    const int threads = rmax > kWideRange ? 512 : 256;
+    cudaFuncAttributes attr;
+    const cudaError_t got = threads == 512
+                                ? cudaFuncGetAttributes(&attr, l2_chunks_kernel<512>)
+                                : cudaFuncGetAttributes(&attr, l2_chunks_kernel<256>);
+    if (got != cudaSuccess) return -1;
+    const long long smem = 4LL * smem_words(S, rmax);
+    if (rmax <= kMaxTiles * threads &&
+        smem <= optin - static_cast<long long>(attr.sharedSizeBytes))
+        return 0;
+    const int dyn = 4 * (table_slots(S) + S);
+    if (cudaFuncSetAttribute(l2_chunks_scratch_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l2_chunks_scratch_kernel,
+                                                      kScratchThreads, dyn) != cudaSuccess)
+        return -1;
+    const long long spans = (static_cast<long long>(N) + kSpan - 1) / kSpan;
+    const long long grid = std::max(1LL, std::min(spans, static_cast<long long>(per_sm) * sms));
+    return grid * scratch_words_per_block(rmax);
+}
+
+// Launches one block per kSpan chunk slots on `stream` (the shared-memory
+// kernel); returns cudaGetLastError().  `range_bad` is one int the caller
+// zeroed; M is the store length and F the number of sketch rows.
 int l2_chunks_launch(const void* q, const void* s_sizes, int S,
                      const void* mini_hash, const void* mini_wpos,
                      const void* mini_prev, const void* lo,
@@ -512,6 +700,35 @@ int l2_chunks_launch(const void* q, const void* s_sizes, int S,
         static_cast<const int*>(frag), static_cast<const int*>(c0),
         static_cast<const int*>(clen), N, cmw, rmax, M, F, static_cast<int*>(best),
         static_cast<int*>(first), static_cast<int*>(last), static_cast<int*>(range_bad)));
+}
+
+// The same operands through the scratch variant, on a persistent grid of
+// scratch_words / scratch_words_per_block(rmax) blocks; `scratch` holds
+// `scratch_words` int32 words, as l2_chunks_scratch_words sized it.
+int l2_chunks_launch_scratch(const void* q, const void* s_sizes, int S,
+                             const void* mini_hash, const void* mini_wpos,
+                             const void* mini_prev, const void* lo,
+                             const void* rlen, const void* frag, const void* c0,
+                             const void* clen, int N, int cmw, int rmax, int M, int F,
+                             void* best, void* first, void* last, void* range_bad,
+                             void* scratch, long long scratch_words, void* stream) {
+    if (N <= 0) return 0;
+    const long long grid = scratch_words / scratch_words_per_block(rmax);
+    if (scratch == nullptr || grid < 1 || grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const int dyn = 4 * (table_slots(S) + S);
+    cudaError_t err = cudaFuncSetAttribute(
+        l2_chunks_scratch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    l2_chunks_scratch_kernel<<<static_cast<int>(grid), kScratchThreads, dyn,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(q), static_cast<const int*>(s_sizes), S,
+        static_cast<const uint32_t*>(mini_hash), static_cast<const int*>(mini_wpos),
+        static_cast<const int*>(mini_prev), static_cast<const int*>(lo),
+        static_cast<const int*>(rlen), static_cast<const int*>(frag),
+        static_cast<const int*>(c0), static_cast<const int*>(clen), N, cmw, rmax, M, F,
+        static_cast<int*>(best), static_cast<int*>(first), static_cast<int*>(last),
+        static_cast<int*>(range_bad), static_cast<int*>(scratch));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

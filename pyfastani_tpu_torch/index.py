@@ -166,6 +166,10 @@ def build_sharded_index(mapper, n_shards: int) -> ShardedIndex:
     if n_shards > 1:  # the 1-shard fast path never partitions by genome
         genome_of_mini = np.searchsorted(sbf, idx.mini_seqid, side="right")
         counts = np.bincount(genome_of_mini, minlength=n_genomes)
+        # each genome's minimizers in store order: one stable sort by genome
+        # instead of a mask over the whole store per genome
+        by_genome = np.argsort(genome_of_mini, kind="stable")
+        genome_start = np.concatenate([[0], np.cumsum(counts)])
 
         shard_of = np.zeros(n_genomes, dtype=np.int64)
         loads = np.zeros(n_shards, dtype=np.int64)
@@ -195,7 +199,7 @@ def build_sharded_index(mapper, n_shards: int) -> ShardedIndex:
         names, lengths = [], []
         new_seq = 0
         for li, g in enumerate(genomes):
-            sel = genome_of_mini == g
+            sel = by_genome[genome_start[g] : genome_start[g + 1]]
             n_ctg = int(sbf[g] - contig_lo[g])
             local_seq = idx.mini_seqid[sel] - contig_lo[g] + new_seq
             mh.append(idx.mini_hash[sel])

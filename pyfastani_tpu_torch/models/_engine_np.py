@@ -430,12 +430,21 @@ def _l2_shared_curve(
 
 def _search_pos(index: PostingIndex, seq_id: int, wpos: int) -> int:
     """``Sketch::searchIndex``: lower bound on (seqId, wpos) in the
-    position-ordered minimizer store."""
-    key = np.int64(seq_id) << 32 | np.int64(np.uint32(np.int64(wpos)))
-    keys = (index.mini_seqid.astype(np.int64) << 32) | index.mini_wpos.astype(
-        np.int64
-    )
-    return int(np.searchsorted(keys, key, side="left"))
+    position-ordered minimizer store.
+
+    The key is ``seqId << 32 | uint32(wpos)``; searching the contig's
+    block and then its positions gives the same bound in O(log M), where
+    building every key would cost O(M) per call.  Stored positions lie in
+    [0, 2^31), so a ``wpos`` outside it (a low word of 2^31 or more) lies
+    past the block.  The probes are int32 like the planes: a Python int
+    would make numpy cast the whole plane to int64, O(M) again.
+    """
+    seqid = index.mini_seqid
+    a = int(np.searchsorted(seqid, np.int32(seq_id), side="left"))
+    b = int(np.searchsorted(seqid, np.int32(seq_id), side="right"))
+    if not 0 <= wpos <= np.iinfo(np.int32).max:
+        return b
+    return a + int(np.searchsorted(index.mini_wpos[a:b], np.int32(wpos), side="left"))
 
 
 @dataclasses.dataclass

@@ -20,7 +20,9 @@ raises the returned range flag, which the caller reads with the pass's
 other flags: the check costs no host sync.
 
 `l2_chunks` launches the hand-written CUDA kernel
-(``csrc/l2_chunks.cu``) for CUDA tensors and takes the plain version,
+(``csrc/l2_chunks.cu``; a range too long for shared memory takes its
+scratch variant, with every ``rmax`` served) for CUDA tensors and takes
+the plain version,
 `l2_chunks_reference`, for CPU tensors; any other device raises.
 ``launches`` counts kernel launches and ``reference_calls`` counts runs of
 the plain version, so a caller can show which one a run went through.
@@ -157,13 +159,6 @@ def l2_chunks(
     lib = load_library()
     S = q_sorted.shape[1]
     dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
-    smem = lib.l2_chunks_smem_bytes(S, rmax)
-    limit = lib.l2_chunks_smem_limit(dev.index, rmax)
-    if smem > limit:
-        raise ValueError(
-            f"rmax={rmax} (with a {S}-wide sketch) needs {smem} bytes of "
-            f"shared memory per block; this device allows {limit}"
-        )
     N = lo.shape[0]
     best = torch.empty(N, dtype=torch.int32, device=dev)
     first = torch.empty_like(best)
@@ -179,9 +174,21 @@ def l2_chunks(
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     M, F = mini_hash.shape[0], q_sorted.shape[0]
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.l2_chunks_launch(
-            *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr, stream
-        )
+        # ranges too long for shared memory take the scratch variant, whose
+        # global scratch comes from the caching allocator
+        words = lib.l2_chunks_scratch_words(dev.index, S, rmax, N)
+        if words < 0:
+            raise RuntimeError("l2_chunks: the CUDA device could not be queried")
+        if words == 0:
+            err = lib.l2_chunks_launch(
+                *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr, stream
+            )
+        else:
+            scratch = torch.empty(words, dtype=torch.int32, device=dev)
+            err = lib.l2_chunks_launch_scratch(
+                *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr,
+                ctypes.c_void_p(scratch.data_ptr()), words, stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"l2_chunks kernel launch failed: {lib.l2_chunks_error_string(err).decode()}"

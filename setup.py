@@ -15,7 +15,7 @@ setup(
     package_data={
         "pyfastani_tpu": ["py.typed", "**/*.pyi"],
         # built at first use: the CUDA library and the host C extension
-        "pyfastani_tpu_torch": ["csrc/*.cu", "_native/fastamod.c"],
+        "pyfastani_tpu_torch": ["py.typed", "csrc/*.cu", "_native/fastamod.c"],
     },
     ext_modules=[
         Extension(

@@ -134,6 +134,20 @@ def _all_anchors_case():
     return store, sketch, (frag, c0, np.maximum(last - c0 + 1, 1).astype(np.int32), lo, rlen)
 
 
+def _long_ranges_case():
+    """Ranges of up to 16,000 entries with hashes that repeat inside a
+    window: many tiles per chunk and class B past the one-warp sort (the
+    kernel's scratch variant, at an rmax past shared memory)."""
+    M, N = 40_000, 24
+    store, sketch, (frag, _, clen, _, _) = _random_case(12, M=M, N=N, hash_bits=12)
+    seqid, wpos = store[1], store[2]
+    rng = np.random.default_rng(12)
+    lo = rng.integers(0, M // 2, size=N).astype(np.int32)
+    rlen = np.minimum(rng.integers(0, 16_000, size=N), M - lo).astype(np.int32)
+    rlen = _contig_clamp(seqid, lo, rlen)
+    return store, sketch, (frag, wpos[lo], clen, lo, rlen)
+
+
 _CASES = {
     "seed1": lambda: _random_case(1),
     "seed2": lambda: _random_case(2),
@@ -147,7 +161,10 @@ _CASES = {
     # starts (few distinct hashes), or some of them
     "repeats_dense": lambda: _random_case(10, hash_bits=6),
     "repeats_mixed": lambda: _random_case(11, hash_bits=9),
+    "long_ranges": _long_ranges_case,
 }
+# the range capacity each case needs (896 elsewhere)
+_RMAX = {"long_ranges": 16128}
 _PALLAS_CASES = ["seed1", "seed2", "edge"]
 
 
@@ -188,7 +205,7 @@ def test_reference_matches_xla_on_kernel_edge_cases(case):
     mh, seqid, wpos = store
     q, s_sizes = sketch
     frag, c0, clen, lo, rlen = chunks
-    got = tl2.l2_chunks_reference(*_port(store, sketch, chunks, rmax=896))
+    got = tl2.l2_chunks_reference(*_port(store, sketch, chunks, rmax=_RMAX.get(case, 896)))
     xla = l2_chunk_scan(q, s_sizes, mh, wpos, np.stack([frag, c0, clen, lo, rlen], axis=1), CMW, 3072)
     for name, g, x in zip(["best", "first", "last"], got, xla):
         np.testing.assert_array_equal(g.numpy(), x, err_msg=name)
@@ -250,7 +267,9 @@ def test_l2_chunks_takes_plain_version_on_cpu_only():
     "case,rmax",
     [("seed1", 896), ("edge", 896), ("seed2", 8064)]
     + [(c, 896) for c in _CASES if c not in _PALLAS_CASES]
-    + [("fragment_runs", 8064), ("sketch_sizes", 8064), ("repeats_dense", 8064)],
+    + [("fragment_runs", 8064), ("sketch_sizes", 8064), ("repeats_dense", 8064)]
+    # past the card's shared memory: the scratch variant
+    + [("repeats_dense", 16128), ("long_ranges", 16128)],
 )
 def test_cuda_kernel_matches_reference(case, rmax):
     if not torch.cuda.is_available():
@@ -264,8 +283,13 @@ def test_cuda_kernel_matches_reference(case, rmax):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[3]) == 0
-    with pytest.raises(ValueError, match="rmax"):
-        tl2.l2_chunks(*args[:-1], 1 << 20)
+    # an rmax past shared memory takes the scratch variant: equal too
+    got = tl2.l2_chunks(*args[:-1], 16128)
+    want = tl2.l2_chunks_reference(*args[:-1], 16128)
+    torch.cuda.synchronize()
+    assert tl2.launches == before + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     for name, bad_args in _out_of_range_cases("cuda").items():
         got = tl2.l2_chunks(*bad_args)
         want = tl2.l2_chunks_reference(*bad_args)

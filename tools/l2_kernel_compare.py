@@ -104,7 +104,7 @@ def real_case(gpu: str):
     passes = session.stats["dispatches"] - passes
     print(f"small batch: {l2.launches} kernel launches in {passes} pass(es) of "
           f"query_many; budgets {session.budgets} ({gpu})", flush=True)
-    return cs.capture_l2_operands(session, batch)
+    return cs.capture_l2_operands(session, batch)[1]
 
 
 def main() -> int:

@@ -1,10 +1,14 @@
 """Where the time of the port's query path goes, on one NVIDIA GPU.
 
     python3 tools/torch_query_profile.py [--refs 10] [--ref-len 2000000] [--queries 4]
+    python3 tools/torch_query_profile.py --ava 512 [--groups 8]
 
 Builds the ``bench.py`` small-batch workload (random references, queries
-mutated at 3%), warms one `Session`, then over steady ``query_many``
-passes reports:
+mutated at 3%), or with ``--ava N`` the N-genome all-vs-all of
+``chip_smoke.ava_genomes`` (the whole panel indexed; the batch is the
+genomes of the first G groups of the all-vs-all's packing, which
+``query_many`` runs as about G groups), warms one `Session`, then over
+steady ``query_many`` passes reports:
 
 * per-stage stream time, from CUDA events around each stage of
   ``session._query_block`` (fragment winnow, L1, L2 chunk sweep, gate and
@@ -94,12 +98,34 @@ class _HostTimer(_StageTimer):
         return {k: 1e3 * sum(v) for k, v in self.events.items()}
 
 
+def _first_groups(session, batch, n_groups: int):
+    """The genomes of the first ``n_groups`` groups into which
+    ``session.query_many(batch)`` packs ``batch``: the packing runs with
+    the dispatch replaced by a recorder."""
+    seen = []
+
+    def record(per_genome, groups):
+        seen.extend(groups[:n_groups])
+        return []
+
+    session._run_groups = record
+    try:
+        session.query_many(batch)
+    finally:
+        del session._run_groups
+    return [batch[gi] for group in seen for gi in group]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--refs", type=int, default=10)
     ap.add_argument("--ref-len", type=int, default=2_000_000)
     ap.add_argument("--queries", type=int, default=4)
     ap.add_argument("--passes", type=int, default=3)
+    ap.add_argument("--ava", type=int, default=0, metavar="N",
+                    help="profile the N-genome all-vs-all instead of the small batch")
+    ap.add_argument("--groups", type=int, default=8, metavar="G",
+                    help="with --ava: the first G groups of the all-vs-all")
     args = ap.parse_args()
 
     import torch
@@ -112,23 +138,39 @@ def main() -> int:
     import pyfastani_tpu_torch as pt
     from pyfastani_tpu_torch import session as S
 
-    rng = np.random.default_rng(0)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    refs = [rng.choice(acgt, size=args.ref_len) for _ in range(args.refs)]
-    queries = []
-    for i in range(args.queries):
-        q = refs[i % args.refs].copy()
-        mut = rng.random(q.shape[0]) < 0.03
-        q[mut] = rng.choice(acgt, size=int(mut.sum()))
-        queries.append(q.tobytes())
-    sk = pt.Sketch()
-    for i, r in enumerate(refs):
-        sk.add_genome(f"ref{i}", r.tobytes())
-    session = S.Session(sk.index())
-    batch = [[q] for q in queries]
+    if args.ava:
+        import chip_smoke
+
+        genomes = chip_smoke.ava_genomes(args.ava)
+        sk = pt.Sketch()
+        for i, g in enumerate(genomes):
+            sk.add_genome(f"g{i}", g)
+        session = S.Session(sk.index())
+        batch = _first_groups(session, [[g] for g in genomes], args.groups)
+        workload = (f"all-vs-all of {args.ava} genomes ({sum(len(g) for g in genomes)} bp "
+                    f"indexed), the {len(batch)} genomes of its first {args.groups} groups")
+    else:
+        rng = np.random.default_rng(0)
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        refs = [rng.choice(acgt, size=args.ref_len) for _ in range(args.refs)]
+        batch = []
+        for i in range(args.queries):
+            q = refs[i % args.refs].copy()
+            mut = rng.random(q.shape[0]) < 0.03
+            q[mut] = rng.choice(acgt, size=int(mut.sum()))
+            batch.append([q.tobytes()])
+        sk = pt.Sketch()
+        for i, r in enumerate(refs):
+            sk.add_genome(f"ref{i}", r.tobytes())
+        session = S.Session(sk.index())
+        workload = f"{args.refs} x {args.ref_len} bp refs, {args.queries} queries"
+    session.warmup()
     session.query_many(batch)
     torch.cuda.synchronize()
-    qbp = sum(len(q) for q in queries)
+    qbp = sum(len(q[0]) for q in batch)
+    dispatches = session.stats["dispatches"]
+    session.query_many(batch)
+    groups = session.stats["dispatches"] - dispatches
 
     # stage times: the query block's own stages, then its remainder
     timer = _StageTimer(S, {
@@ -156,8 +198,8 @@ def main() -> int:
     block = tot.pop("query block")
     tot["gate+CGI"] = block - sum(tot[k] for k in ("winnow+sketch", "L1", "L2 sweep"))
     wall_ms = 1e3 * float(np.median(walls))
-    print(f"card: {gpu}; workload {args.refs} x {args.ref_len} bp refs, "
-          f"{args.queries} queries ({qbp} bp), budgets {session.budgets}")
+    print(f"card: {gpu}; workload {workload} ({qbp} bp of queries, {groups} groups a "
+          f"pass), budgets {session.budgets}")
     print(f"steady query_many wall {wall_ms:.3f} ms (median of {args.passes}; "
           f"{qbp / 1e3 / wall_ms:.2f} Mbp/s); stream time per pass by stage "
           "(CUDA events, launch gaps included):")
