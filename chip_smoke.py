@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, with one NVIDIA Hopper card visible:
 
-    python3 chip_smoke.py [--ava-genomes N] [--ava-only]
+    python3 chip_smoke.py
 
 It builds the port's host C extension (``pyfastani_tpu_torch/_native/``)
 and CUDA kernel (``pyfastani_tpu_torch/csrc/``) and runs these phases in
@@ -46,12 +46,12 @@ result:
 9. budget escalation on the card: phase 4's panel through a ``Session``
    whose budgets are too small escalates at least twice and gives phase
    4's hits;
-10. the all-vs-all of ``bench.py`` (`ava_genomes`: 512 genomes, 1408 Mbp,
-    or ``--ava-genomes N``, a multiple of 32) through ``Sketch`` ->
-    ``add_genome`` -> ``index()`` -> ``Session(mapper)`` -> ``warmup()``
-    -> ``query_many`` of every genome, a first pass timed apart and a
-    steady one: step times, Mbp/s, pairs/s, groups, fragments, budgets,
-    escalations and peak device memory; every genome hits exactly the 8
+10. the all-vs-all of ``bench.py`` (`ava_genomes`: 512 genomes, 1408 Mbp)
+    through ``Sketch`` -> ``add_genome`` -> ``index()`` ->
+    ``Session(mapper)`` -> ``warmup()`` -> ``query_many`` of every genome,
+    a first pass timed apart and a steady one: step times, Mbp/s, pairs/s,
+    groups, fragments, budgets, escalations and the peak device memory of
+    each pass; every genome hits exactly the 8
     genomes of its family and its sibling family, itself at identity 100
     (4096 hits, as the JAX package returned); g0 and g4 equal the host
     NumPy engine on the same index (g0 alone when the two would take
@@ -64,9 +64,8 @@ their run and fail unless the kernel ran and its plain version did not.
 The last lines are the card, a JSON object with one entry per kernel
 (launches summed over phases 4 to 6, 9 and 10's steady pass, times and
 bound at the ``real`` case, which its ``case`` key names), and
-``{"ok": true, "device": {...}}``.  ``--ava-only`` runs phases 1, 2, 10
-and the ``ava`` case and prints no result.  Imports neither JAX nor
-anything of ``pyfastani_tpu``, and fails if either was loaded.
+``{"ok": true, "device": {...}}``.  Takes no arguments.  Imports neither
+JAX nor anything of ``pyfastani_tpu``, and fails if either was loaded.
 """
 
 from __future__ import annotations
@@ -238,25 +237,30 @@ def kernel_work(args) -> dict:
     )
 
 
-def kernel_device_ms(fn, args, reps: int = 20) -> float:
+def kernel_device_ms(fn, args, reps: int = 20, tries: int = 3) -> float:
     """Device time of the L2 kernel (either variant) alone per call, from a
-    ``torch.profiler`` trace of ``reps`` calls."""
+    ``torch.profiler`` trace of ``reps`` calls.  A trace that holds none of
+    the kernel's device time (seen once among the smoke's runs on an H100,
+    and not again in the same sequence of calls) is taken again, up to
+    ``tries`` traces; then it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    total = sum(
-        e.self_device_time_total
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and "l2_chunks" in e.key
-    )
-    return total / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in device if "l2_chunks" in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+        log(f"torch.profiler recorded no device time of the kernel ({len(device)} device "
+            f"kernels in the trace); tracing again")
+    raise RuntimeError(f"torch.profiler recorded no device time of the kernel in {tries} traces")
 
 
 def check_kernel(name: str, args, gpu: str) -> dict:
@@ -318,9 +322,15 @@ def phase_kernel(device, gpu: str) -> None:
         check_kernel(name, kernel_case(rng, n, rmax, device), gpu)
 
 
+# operands of `l2_chunks` that are the session's parked store planes
+# (mini_hash, mini_wpos, mini_prev): no pass writes them
+STORE_OPERANDS = (2, 3, 4)
+
+
 def capture_l2_operands(session, batch):
     """``(hits, operands)``: one ``session.query_many(batch)`` and the
-    operands of its first `l2_chunks` call, cloned."""
+    operands of its first `l2_chunks` call, cloned but for the store
+    planes, which are kept by reference."""
     import torch
 
     from pyfastani_tpu_torch import session as session_module
@@ -330,7 +340,10 @@ def capture_l2_operands(session, batch):
 
     def capture(*args):
         if not captured:
-            captured.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            captured.append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) and i not in STORE_OPERANDS else a
+                for i, a in enumerate(args)
+            ))
         return original(*args)
 
     session_module.l2_chunks = capture
@@ -685,20 +698,20 @@ def check_ava_hits(hits, n_genomes: int, where: str) -> None:
             raise AssertionError(f"{where}: g{i} self-hit identity {self_hit}, expected [100.0]")
 
 
-def phase_ava(gpu: str, n_genomes: int):
+def phase_ava(gpu: str):
     """The all-vs-all of ``bench.py`` through the user's entry points on
     one card: ``Sketch`` -> ``add_genome`` x N -> ``index()`` ->
     ``Session(mapper)`` -> ``warmup()`` -> ``query_many`` of every genome,
     twice (the first pass timed apart; it also captures the operands of
-    its first L2 sweep, one clone on the card).  Then the host NumPy
-    engine on g0 and g4, and the four-card (1, 4) mesh when there are four
-    cards.  Returns the kernel launches of the steady pass and the
-    captured operands."""
+    its first L2 sweep).  Then the host NumPy engine on g0 and g4, and the
+    four-card (1, 4) mesh when there are four cards.  Returns the kernel
+    launches of the steady pass and the captured operands."""
     import torch
 
     import pyfastani_tpu_torch as pt
     from pyfastani_tpu_torch.session import Session
 
+    n_genomes = AVA_GENOMES
     t0 = time.perf_counter()
     genomes = ava_genomes(n_genomes)
     t_gen = time.perf_counter() - t0
@@ -718,7 +731,6 @@ def phase_ava(gpu: str, n_genomes: int):
         f"{t_index:.3f} s: {mapper._index.n_minimizers} minimizers ({gpu})"
     )
 
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session = Session(mapper)
     torch.cuda.synchronize()
@@ -732,6 +744,7 @@ def phase_ava(gpu: str, n_genomes: int):
     before = dict(session.stats)
 
     def first_run():
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         hits, operands = capture_l2_operands(session, batch)
         torch.cuda.synchronize()
@@ -740,8 +753,15 @@ def phase_ava(gpu: str, n_genomes: int):
     (first, operands, t_first), launches_first = counted(first_run)
     ran = {k: session.stats[k] - before[k] for k in before}
     peak_first = torch.cuda.max_memory_allocated()
+    # the clones of the capture, held on the card from the first pass on
+    held = sum(
+        a.numel() * a.element_size()
+        for i, a in enumerate(operands)
+        if isinstance(a, torch.Tensor) and i not in STORE_OPERANDS
+    )
 
     def steady_run():
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         hits = session.query_many(batch)
         torch.cuda.synchronize()
@@ -762,8 +782,9 @@ def phase_ava(gpu: str, n_genomes: int):
         f"dispatched and {ran['fragments_padded']} padded, escalations "
         f"{ran['budget_escalations']}; budgets {session.budgets}; kernel launches "
         f"{launches_first} first, {launches} steady, plain-version runs 0; peak device memory "
-        f"{peak_first / 2**30:.3f} GiB after the first pass, {peak / 2**30:.3f} GiB after the "
-        f"steady one"
+        f"(allocated, the parked index included) {peak_first / 2**30:.3f} GiB in the first pass, "
+        f"{peak / 2**30:.3f} GiB in the steady one, {held / 2**20:.1f} MiB of each the captured "
+        f"L2 operands"
     )
     log(
         f"[10] {sum(len(h) for h in first)} hits, equal in both passes: every genome hits "
@@ -910,19 +931,8 @@ def nccl_child(rank: int, port: str, work: str) -> int:
     return 0
 
 
-def main(argv) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ava-genomes", type=int, default=AVA_GENOMES,
-                    help="genomes of the all-vs-all (a multiple of 32)")
-    ap.add_argument("--ava-only", action="store_true",
-                    help="run phases 1, 2, 10 and 3's ava case only, and print no result")
-    args = ap.parse_args(argv)
-    if args.ava_genomes <= 0 or args.ava_genomes % 32:
-        ap.error("--ava-genomes must be a positive multiple of 32")
 
     log(
         f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -949,18 +959,17 @@ def main(argv) -> int:
         f"and loaded in {took:.1f} s; ptxas: {' | '.join(ptxas)}")
 
     device = torch.device("cuda", 0)
-    if not args.ava_only:
-        phase_kernel(device, gpu)
-        refs, queries, unrelated = genomes()
-        mapper, many, launches, real = phase_query(gpu, refs, queries, unrelated)
-        kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
-        launches += phase_mesh(gpu, mapper, queries, many)
-        launches += phase_pipeline(gpu, mapper, queries)
-        phase_ingest(gpu, refs)
-        phase_nccl(gpu, mapper, queries[0], many[0])
-        launches += phase_escalation(gpu, mapper, queries, many)
-        del mapper, real
-    ava_launches, ava_ops = phase_ava(gpu, args.ava_genomes)
+    phase_kernel(device, gpu)
+    refs, queries, unrelated = genomes()
+    mapper, many, launches, real = phase_query(gpu, refs, queries, unrelated)
+    kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
+    launches += phase_mesh(gpu, mapper, queries, many)
+    launches += phase_pipeline(gpu, mapper, queries)
+    phase_ingest(gpu, refs)
+    phase_nccl(gpu, mapper, queries[0], many[0])
+    launches += phase_escalation(gpu, mapper, queries, many)
+    del mapper, real
+    ava_launches, ava_ops = phase_ava(gpu)
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
     loaded = sorted(
         m for m in sys.modules
@@ -968,9 +977,6 @@ def main(argv) -> int:
     )
     if loaded:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {loaded}")
-    if args.ava_only:
-        log("ava-only run: done")
-        return 0
 
     print(gpu)
     print(json.dumps({"kernels": [{
@@ -993,4 +999,6 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--nccl-rank"]:
         sys.exit(nccl_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    sys.exit(main(sys.argv[1:]))
+    if len(sys.argv) > 1:
+        sys.exit(f"usage: python3 {os.path.basename(__file__)} (it takes no arguments)")
+    sys.exit(main())

@@ -96,6 +96,8 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.l2_chunks_error_string.argtypes = [i32]
     lib.l2_chunks_error_string.restype = ctypes.c_char_p
+    lib.l2_chunks_fits_shared.argtypes = [i32, i32, i32]  # device, S, rmax
+    lib.l2_chunks_fits_shared.restype = i32
     lib.l2_chunks_scratch_words.argtypes = [i32, i32, i32, i32]  # device, S, rmax, N
     lib.l2_chunks_scratch_words.restype = i64
     lib.l2_chunks_launch.argtypes = operands + [ptr]  # stream

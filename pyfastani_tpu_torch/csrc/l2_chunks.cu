@@ -63,11 +63,12 @@
 //     S = 384: a second rmax escalation), a variant of the same kernel,
 //     l2_chunks_scratch_kernel, keeps the range planes, class B and the
 //     sort area in a global scratch buffer that the wrapper allocates;
-//     the hash set and the sketch row stay in shared memory.  A
-//     persistent grid of resident blocks loops over the spans, each
-//     block owning one slice of the scratch, and compacts tile by tile
-//     with a running offset, so a range has no length limit.  It is
-//     rare and simple, not tuned.
+//     the hash set stays in shared memory, filled straight from the
+//     sketch row in global memory.  A persistent grid of resident blocks
+//     loops over the spans, each block owning one slice of the scratch,
+//     and compacts tile by tile with a running offset, so a range has no
+//     length limit.  It is rare and simple, not tuned (PERF.md times it
+//     against the shared-memory kernel on the path's own ranges).
 // The block reduction of (best, first, last) is integer max/min, so the
 // result does not depend on the order in which threads finish.
 
@@ -486,8 +487,9 @@ l2_chunks_kernel(const uint32_t* __restrict__ q, const int* __restrict__ s_sizes
 
 // The variant for ranges past the shared memory: a chunk's range planes,
 // class B's positions and the sort area live in this block's slice of a
-// global scratch buffer (scratch_words_per_block words); the hash set and
-// the sketch row stay in shared memory.  A persistent grid: each resident
+// global scratch buffer (scratch_words_per_block words); the hash set, the
+// only dynamic shared memory, is filled from the sketch row in global
+// memory.  A persistent grid: each resident
 // block loops over the spans of kSpan slots.  Compaction goes tile by
 // tile with a running offset, so a range may be of any length.  Global
 // writes of one thread reach the others of its block at a barrier.
@@ -495,6 +497,11 @@ constexpr int kScratchThreads = 512;
 
 __host__ __device__ __forceinline__ long long scratch_words_per_block(int rmax) {
     return 4LL * rmax + pow2_at_least(max(rmax, 1));
+}
+
+// the scratch variant's dynamic shared memory: the hash set
+__host__ __device__ __forceinline__ int scratch_smem_bytes(int S) {
+    return 4 * table_slots(S);
 }
 
 __global__ void __launch_bounds__(kScratchThreads, 2)
@@ -526,7 +533,6 @@ l2_chunks_scratch_kernel(const uint32_t* __restrict__ q, const int* __restrict__
     int log_t = 0;
     while ((1 << log_t) < T) ++log_t;
     uint32_t* table = reinterpret_cast<uint32_t*>(smem);
-    uint32_t* row = table + T;
     int* buf = scratch + static_cast<int64_t>(blockIdx.x) * scratch_words_per_block(rmax);
     int* bh = buf;                  // hash plane, then class A positions in place
     int* bp = buf + rmax;           // wpos plane
@@ -558,12 +564,11 @@ l2_chunks_scratch_kernel(const uint32_t* __restrict__ q, const int* __restrict__
                 bp[j] = mini_wpos[base + j];
                 bv[j] = mini_prev[base + j];
             }
-            if (f != cur_frag) {  // the fragment's sketch row and hash set
+            if (f != cur_frag) {  // the fragment's hash set, from its sketch row
                 for (int t = tid; t < T; t += kThreads) table[t] = kEmpty;
-                for (int t = tid; t < m_seff[slot]; t += kThreads)
-                    row[t] = q[static_cast<int64_t>(f) * S + t];
                 if (tid == 0) has_umax = 0;
                 __syncthreads();
+                const uint32_t* row = q + static_cast<int64_t>(f) * S;
                 for (int t = tid; t < m_seff[slot]; t += kThreads)
                     set_insert(table, log_t, T, row[t], &has_umax);
                 cur_frag = f;
@@ -647,15 +652,13 @@ const char* l2_chunks_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 0 when the shared-memory kernel serves a sketch width S and range
-// capacity rmax on `device`; otherwise the int32 words of global scratch
-// that l2_chunks_launch_scratch needs for N chunk slots: one slice per
-// resident block of the persistent grid.  Negative on a CUDA error.
-long long l2_chunks_scratch_words(int device, int S, int rmax, int N) {
-    int optin = 0, sms = 0, per_sm = 0;
+// 1 when the shared-memory kernel (l2_chunks_launch) serves a sketch
+// width S and range capacity rmax on `device`, 0 when it does not (take
+// l2_chunks_launch_scratch), negative on a CUDA error.
+int l2_chunks_fits_shared(int device, int S, int rmax) {
+    int optin = 0;
     if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+        cudaSuccess)
         return -1;
     const int threads = rmax > kWideRange ? 512 : 256;
     cudaFuncAttributes attr;
@@ -664,10 +667,18 @@ long long l2_chunks_scratch_words(int device, int S, int rmax, int N) {
                                 : cudaFuncGetAttributes(&attr, l2_chunks_kernel<256>);
     if (got != cudaSuccess) return -1;
     const long long smem = 4LL * smem_words(S, rmax);
-    if (rmax <= kMaxTiles * threads &&
-        smem <= optin - static_cast<long long>(attr.sharedSizeBytes))
-        return 0;
-    const int dyn = 4 * (table_slots(S) + S);
+    return rmax <= kMaxTiles * threads &&
+           smem <= optin - static_cast<long long>(attr.sharedSizeBytes);
+}
+
+// The int32 words of global scratch that l2_chunks_launch_scratch needs
+// for N chunk slots at range capacity rmax on `device`: one slice per
+// resident block of the persistent grid.  Negative on a CUDA error.
+long long l2_chunks_scratch_words(int device, int S, int rmax, int N) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+        return -1;
+    const int dyn = scratch_smem_bytes(S);
     if (cudaFuncSetAttribute(l2_chunks_scratch_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, dyn) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l2_chunks_scratch_kernel,
@@ -715,7 +726,7 @@ int l2_chunks_launch_scratch(const void* q, const void* s_sizes, int S,
     if (N <= 0) return 0;
     const long long grid = scratch_words / scratch_words_per_block(rmax);
     if (scratch == nullptr || grid < 1 || grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-    const int dyn = 4 * (table_slots(S) + S);
+    const int dyn = scratch_smem_bytes(S);
     cudaError_t err = cudaFuncSetAttribute(
         l2_chunks_scratch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return static_cast<int>(err);

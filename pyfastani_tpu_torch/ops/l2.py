@@ -176,10 +176,11 @@ def l2_chunks(
     with torch.cuda.device(dev):  # the launch goes to the current device
         # ranges too long for shared memory take the scratch variant, whose
         # global scratch comes from the caching allocator
-        words = lib.l2_chunks_scratch_words(dev.index, S, rmax, N)
-        if words < 0:
+        fits = lib.l2_chunks_fits_shared(dev.index, S, rmax)
+        words = 0 if fits else lib.l2_chunks_scratch_words(dev.index, S, rmax, N)
+        if fits < 0 or words < 0:
             raise RuntimeError("l2_chunks: the CUDA device could not be queried")
-        if words == 0:
+        if fits:
             err = lib.l2_chunks_launch(
                 *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr, stream
             )

@@ -90,10 +90,10 @@ def test_all_vs_all_equals_jax_sharded_session(panel, shape):
 
 @pytest.mark.parametrize("n_shards", [3, 4])
 def test_index_split_by_genome_equals_jax(panel, n_shards):
-    """Eight genomes or more on each shard: every array of the port's
-    sharded index equals the JAX package's."""
-    _, jax_mapper, _ = panel
-    got = tidx.build_sharded_index(jax_mapper, n_shards)
+    """Eight genomes or more on each shard: every array of the sharded
+    index the port builds from its own mapper equals the JAX package's."""
+    _, jax_mapper, port_mapper = panel
+    got = tidx.build_sharded_index(port_mapper, n_shards)
     want = jsh.build_sharded_index(jax_mapper, n_shards)
     for name, value in vars(got).items():
         if isinstance(value, np.ndarray):

@@ -1,22 +1,26 @@
-"""The L2 chunk kernel against an earlier version of it, on one GPU.
+"""The L2 chunk kernel against another version of it, on one GPU.
 
     python3 tools/l2_kernel_compare.py OLD.cu
+    python3 tools/l2_kernel_compare.py --scratch
 
-Builds ``OLD.cu`` (an earlier ``pyfastani_tpu_torch/csrc/l2_chunks.cu``
+With ``OLD.cu`` (an earlier ``pyfastani_tpu_torch/csrc/l2_chunks.cu``
 with the same ``l2_chunks_launch`` C interface, for example
-``git show <commit>:pyfastani_tpu_torch/csrc/l2_chunks.cu``) with the
-port's nvcc flags beside the current kernel, and runs both on the cases
-of ``chip_smoke.py`` phase 3: ``main``, ``wide`` and ``real`` (the
-operands of one L2 sweep of the 10 x 2 Mbp small batch, 4 queries).  On
-each case both must equal the plain version bitwise; then it prints both
-kernels' times between CUDA events (old, new, new, old), each kernel alone
-in device time (``torch.profiler``), the bound, the share of it reached,
-and the kernel launches of one small-batch ``query_many``.  Last, the
-current kernel's timed call on variants of ``main`` that isolate its
-costs: fragments in runs (one sketch-set build per run), no sketch
-(nothing to insert or match), no anchors, ranges cut to 64 entries.
-Every line names the card and its power limit.  Needs a GPU; imports no
-JAX.
+``git show <commit>:pyfastani_tpu_torch/csrc/l2_chunks.cu``) it builds that
+source with the port's nvcc flags and holds its kernel ("old") against the
+current one ("new").  With ``--scratch`` it holds the current scratch
+variant (``l2_chunks_launch_scratch``, the kernel past shared memory)
+against the current shared-memory kernel on ranges both serve.  The cases
+are those of ``chip_smoke.py`` phase 3: ``main``, ``wide``, ``real`` (the
+operands of one L2 sweep of the 10 x 2 Mbp small batch, 4 queries) and
+``ava`` (the first L2 sweep of the 512-genome all-vs-all).  On each case
+both must equal the plain version bitwise; then it prints both kernels'
+times between CUDA events (in turns: a, b, b, a), each kernel alone in
+device time (``torch.profiler``), the bound, the share of it reached, and
+the kernel launches of one small-batch ``query_many``.  Last, the current
+kernel's timed call on variants of ``main`` that isolate its costs:
+fragments in runs (one sketch-set build per run), no sketch (nothing to
+insert or match), no anchors, ranges cut to 64 entries.  Every line names
+the card and its power limit.  Needs a GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,14 +63,15 @@ def build_old(source: str) -> ctypes.CDLL:
     return lib
 
 
-def old_kernel(lib):
-    """`ops.l2.l2_chunks` through ``lib``'s launch."""
+def kernel_of(lib, scratch: bool = False):
+    """`ops.l2.l2_chunks` through ``lib``'s shared-memory kernel, or with
+    ``scratch`` through its scratch variant whatever the range capacity."""
     import torch
 
     from pyfastani_tpu_torch._common import hash_to_i32
 
     def run(q, s, mh, wp, prev, lo, rlen, frag, c0, clen, cmw, rmax):
-        N = lo.shape[0]
+        N, S = lo.shape[0], q.shape[1]
         best = torch.empty(N, dtype=torch.int32, device=q.device)
         first, last = torch.empty_like(best), torch.empty_like(best)
         flag = torch.zeros(1, dtype=torch.int32, device=q.device)
@@ -74,11 +79,17 @@ def old_kernel(lib):
         p = [ctypes.c_void_p(t.contiguous().data_ptr()) for t in ops]
         out = [ctypes.c_void_p(t.data_ptr()) for t in (best, first, last, flag)]
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        err = lib.l2_chunks_launch(
-            *p[:2], q.shape[1], *p[2:], N, cmw, rmax, mh.shape[0], q.shape[0], *out, stream
-        )
+        tail = (N, cmw, rmax, mh.shape[0], q.shape[0], *out)
+        if scratch:
+            words = lib.l2_chunks_scratch_words(q.device.index, S, rmax, N)
+            buf = torch.empty(max(words, 1), dtype=torch.int32, device=q.device)
+            err = lib.l2_chunks_launch_scratch(
+                *p[:2], S, *p[2:], *tail, ctypes.c_void_p(buf.data_ptr()), words, stream
+            )
+        else:
+            err = lib.l2_chunks_launch(*p[:2], S, *p[2:], *tail, stream)
         if err:
-            raise RuntimeError(f"old kernel launch failed: {err}")
+            raise RuntimeError(f"kernel launch failed: {err}")
         return best, first, last, flag[0]
 
     return run
@@ -107,6 +118,20 @@ def real_case(gpu: str):
     return cs.capture_l2_operands(session, batch)[1]
 
 
+def ava_case():
+    """The operands of the first L2 sweep of the all-vs-all's first pass,
+    as ``chip_smoke.py`` phase 10 captures them."""
+    import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch.session import Session
+
+    genomes = cs.ava_genomes(cs.AVA_GENOMES)
+    sketch = pt.Sketch()
+    for i, g in enumerate(genomes):
+        sketch.add_genome(f"g{i}", g)
+    session = Session(sketch.index())
+    return cs.capture_l2_operands(session, [[g] for g in genomes])[1]
+
+
 def main() -> int:
     import torch
 
@@ -117,38 +142,45 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     gpu = cs.gpu_line()
+    from pyfastani_tpu_torch import _build
     from pyfastani_tpu_torch.ops import l2
 
-    old = old_kernel(build_old(sys.argv[1]))
+    if sys.argv[1] == "--scratch":
+        pair = (("scratch", kernel_of(_build.load_library(), scratch=True)),
+                ("shared", kernel_of(_build.load_library())))
+    else:
+        pair = (("old", kernel_of(build_old(sys.argv[1]))), ("new", l2.l2_chunks))
+    (a_name, a_fn), (b_name, b_fn) = pair
     rng = np.random.default_rng(11)
     device = torch.device("cuda", 0)
     cases = [
         ("main", cs.kernel_case(rng, cs.KERNEL_N, cs.KERNEL_RMAX, device)),
         ("wide", cs.kernel_case(rng, cs.WIDE_N, cs.WIDE_RMAX, device)),
         ("real", real_case(gpu)),
+        ("ava", ava_case()),
     ]
     for name, args in cases:
         want = l2.l2_chunks_reference(*args)
-        for label, fn in (("old", old), ("new", l2.l2_chunks)):
+        for label, fn in pair:
             got = fn(*args)
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"{label} kernel differs from the plain version ({name})")
-        t_old_a = cs.time_ms(old, args)
-        t_new_a = cs.time_ms(l2.l2_chunks, args)
-        t_new_b = cs.time_ms(l2.l2_chunks, args)
-        t_old_b = cs.time_ms(old, args)
-        d_old = cs.kernel_device_ms(old, args)
-        d_new = cs.kernel_device_ms(l2.l2_chunks, args)
+        t_a1 = cs.time_ms(a_fn, args)
+        t_b1 = cs.time_ms(b_fn, args)
+        t_b2 = cs.time_ms(b_fn, args)
+        t_a2 = cs.time_ms(a_fn, args)
+        d_a = cs.kernel_device_ms(a_fn, args)
+        d_b = cs.kernel_device_ms(b_fn, args)
         work = cs.kernel_work(args)
         print(
             f"{name}: {args[5].shape[0]} chunks ({work['live']} live, {work['entries']} range "
             f"entries), rmax {args[11]}, S {args[0].shape[1]}; both bitwise equal to the plain "
-            f"version. Timed call old {t_old_a:.4f}/{t_old_b:.4f} ms, new {t_new_a:.4f}/"
-            f"{t_new_b:.4f} ms; kernel alone old {d_old:.4f} ms, new {d_new:.4f} ms of device "
-            f"time ({d_old / d_new:.2f}x); bound {work['bound_ms']:.4f} ms by "
-            f"{work['bound_by']} ({work['bytes']} B, {work['ops']} int32 ops): old "
-            f"{100 * work['bound_ms'] / d_old:.2f}%, new {100 * work['bound_ms'] / d_new:.2f}% "
+            f"version. Timed call {a_name} {t_a1:.4f}/{t_a2:.4f} ms, {b_name} {t_b1:.4f}/"
+            f"{t_b2:.4f} ms; kernel alone {a_name} {d_a:.4f} ms, {b_name} {d_b:.4f} ms of "
+            f"device time ({a_name}/{b_name} {d_a / d_b:.2f}x); bound {work['bound_ms']:.4f} ms "
+            f"by {work['bound_by']} ({work['bytes']} B, {work['ops']} int32 ops): {a_name} "
+            f"{100 * work['bound_ms'] / d_a:.2f}%, {b_name} {100 * work['bound_ms'] / d_b:.2f}% "
             f"of it ({gpu})",
             flush=True,
         )
