@@ -57,12 +57,17 @@ result:
     NumPy engine on the same index (g0 alone when the two would take
     over 90 s); with four cards, the same on a ``(1, 4)`` mesh, the index
     split by genome, equal to the one-card hits, else one line says it
-    did not run.
+    did not run;
+11. (run after phase 9, while phase 4's index is still parked) phase 4's
+    batch as uppercase ``bytes``, lowercase ``bytes``, a mixed-case
+    ``bytearray`` and a mixed-case uint8 ``ndarray``: the session stages
+    raw bytes and the card uppercases them, so each kind's hits equal
+    phase 4's; each pass's ``_fragments`` and ``_stage`` milliseconds.
 
-Phases 4 to 6, 9 and 10 each reset the kernel's launch counters before
+Phases 4 to 6, 9, 10 and 11 each reset the kernel's launch counters before
 their run and fail unless the kernel ran and its plain version did not.
 The last lines are the card, a JSON object with one entry per kernel
-(launches summed over phases 4 to 6, 9 and 10's steady pass, times and
+(launches summed over phases 4 to 6, 9, 10's steady pass and 11, times and
 bound at the ``real`` case, which its ``case`` key names), and
 ``{"ok": true, "device": {...}}``.  Takes no arguments.  Imports neither
 JAX nor anything of ``pyfastani_tpu``, and fails if either was loaded.
@@ -683,6 +688,58 @@ def phase_escalation(gpu: str, mapper, queries, want) -> int:
     return launches
 
 
+def phase_case(gpu: str, mapper, queries, want) -> int:
+    """Phase 4's batch as uppercase ``bytes``, then as lowercase ``bytes``,
+    a mixed-case ``bytearray`` and a mixed-case uint8 ``ndarray`` through
+    one `Session`: the session stages the raw bytes and the card
+    uppercases them, so every kind gives phase 4's hits.  Each pass's
+    `_fragments` and `_stage` milliseconds are printed.  Returns the kernel
+    launches."""
+    import torch
+
+    from bench_torch.spans import HOST_STEPS, HostTimer
+    from pyfastani_tpu_torch.session import Session, ShardedSession
+
+    rng = np.random.default_rng(3)
+
+    def mixed(q: bytes) -> np.ndarray:
+        arr = np.frombuffer(q, np.uint8).copy()
+        arr[rng.random(arr.shape[0]) < 0.5] |= 0x20  # ACGT -> acgt
+        return arr
+
+    queries = queries[:N_QUERIES]
+    kinds = {
+        "uppercase bytes": [[q] for q in queries],
+        "lowercase bytes": [[q.lower()] for q in queries],
+        "mixed-case bytearray": [[bytearray(mixed(q).tobytes())] for q in queries],
+        "mixed-case uint8 ndarray": [[mixed(q)] for q in queries],
+    }
+    session = Session(mapper)
+    session.query_many(kinds["uppercase bytes"])  # allocator growth
+    torch.cuda.synchronize()
+    launches = 0
+    for name, batch in kinds.items():
+        host = HostTimer(ShardedSession, HOST_STEPS)
+        try:
+            t0 = time.perf_counter()
+            hits, n = counted(lambda: session.query_many(batch))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            host.restore()
+        for qi, (a, b) in enumerate(zip(hits, want)):
+            if hit_key(a) != hit_key(b):
+                raise AssertionError(f"{name} query {qi}: {a} != phase 4's uppercase run {b}")
+        ms = host.totals_ms()
+        log(
+            f"[11] {name}, {N_QUERIES} x {REF_LEN} bp: hits equal phase 4's uppercase bytes run; "
+            f"pass {1e3 * wall:.3f} ms, _fragments {ms['host_fragments']:.3f} ms, "
+            f"_stage {ms['host_stage']:.3f} ms; kernel launches {n} ({gpu})"
+        )
+        launches += n
+    return launches
+
+
 def check_ava_hits(hits, n_genomes: int, where: str) -> None:
     """Every genome hits exactly its family and its sibling family, itself
     at identity 100: `AVA_HITS_PER_GENOME` hits each."""
@@ -968,6 +1025,7 @@ def main() -> int:
     phase_ingest(gpu, refs)
     phase_nccl(gpu, mapper, queries[0], many[0])
     launches += phase_escalation(gpu, mapper, queries, many)
+    launches += phase_case(gpu, mapper, queries, many)
     del mapper, real
     ava_launches, ava_ops = phase_ava(gpu)
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["to_bytes", "upper_inplace", "complement_table", "reverse_complement"]
+__all__ = ["to_bytes", "raw_bytes", "upper_inplace", "complement_table", "reverse_complement"]
 
 # C-locale toupper for all 256 byte values
 _UPPER_LUT = np.arange(256, dtype=np.uint8)
@@ -74,6 +74,25 @@ def to_bytes(sequence) -> np.ndarray:
         return _UPPER_LUT[view]
     raw = np.frombuffer(bytes(memoryview(sequence)), dtype=np.uint8)
     return _UPPER_LUT[raw]
+
+
+def raw_bytes(sequence) -> np.ndarray | None:
+    """The bytes `to_bytes` uppercases, not uppercased: ``to_bytes(x) ==
+    _UPPER_LUT[raw_bytes(x)]``.
+
+    A contiguous buffer or array is viewed in place (no copy); an ASCII
+    ``str`` is encoded.  ``None`` for a ``str`` with a non-ASCII code
+    point: `to_bytes` truncates it to its low byte after uppercasing, so
+    no uppercase of any bytes gives its result (U+0161 becomes ``a``).
+    """
+    if isinstance(sequence, str):
+        if not sequence.isascii():
+            return None
+        return np.frombuffer(sequence.encode("ascii"), dtype=np.uint8)
+    if isinstance(sequence, np.ndarray):
+        return np.ascontiguousarray(sequence).view(np.uint8).ravel()
+    view = memoryview(sequence)
+    return np.frombuffer(view if view.c_contiguous else view.tobytes(), dtype=np.uint8)
 
 
 def upper_inplace(data: np.ndarray) -> np.ndarray:

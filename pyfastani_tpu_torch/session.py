@@ -18,8 +18,9 @@ data rows of each shard (the JAX package's ``pmax``; across processes one
 ``all_reduce(MAX)``), and an exact fixed-point identity fold (`_fold`)
 reduces each shard to per-genome sums.
 
-Passes are pipelined: fragments stage into two recycled host slots
-(pinned for CUDA devices) and copy to the devices without blocking, no
+Passes are pipelined: fragments stage as the raw bytes of the input
+into two recycled host slots (pinned for CUDA devices) and copy to the
+devices without blocking, where `_toupper` uppercases them; no
 operation inside a pass waits for the device, and the outputs of every
 group are read back behind one event at the end of an attempt.  Budgets
 are static and pre-sized from index statistics
@@ -75,6 +76,13 @@ def _segment(values, seg, n_seg: int, reduce: str, identity):
     ``values`` by ``seg`` into ``n_seg`` slots, empty slots = identity."""
     out = torch.full((n_seg,), identity, dtype=values.dtype, device=values.device)
     return out.scatter_reduce_(0, seg, values, reduce)
+
+
+def _toupper(frags):
+    """C-locale ``toupper`` of a uint8 tensor, on its device: bytes
+    ``a``-``z`` less 32, every other byte as it is (``codec.to_bytes``'s
+    table on all 256 values).  Returns a new tensor."""
+    return frags - ((frags - 97) < 26).to(torch.uint8) * 32
 
 
 def _bucketed_gpos_search(mini_gpos, keys, bucket, shift: int, steps: int):
@@ -408,15 +416,26 @@ class ShardedSession:
         return cls(None, mesh, index=index, params=_checkpoint_params(index, params), **kwargs)
 
     def _fragments(self, contigs):
-        """Per-contig ``(n_i, l)`` uint8 fragment blocks, plus the totals of
-        fragments and of sequence length."""
+        """Per-contig ``(n_i, l)`` uint8 fragment blocks, the totals of
+        fragments and of sequence length, and whether the blocks are
+        uppercase already.
+
+        The blocks view the raw bytes of each contig (`codec.raw_bytes`, no
+        copy of a buffer); the devices uppercase them after the staging
+        copy.  A genome with a non-ASCII ``str`` contig is converted whole
+        by `codec.to_bytes`, whose low-byte truncation leaves bytes that no
+        later uppercase may touch."""
         params = self.params
         l = params.min_read_length
+        contigs = list(contigs)
+        seqs = [codec.raw_bytes(contig) for contig in contigs]
+        upper = any(data is None for data in seqs)
+        if upper:
+            seqs = [codec.to_bytes(contig) for contig in contigs]
         blocks = []
         total_fragments = 0
         total_length = 0
-        for contig in contigs:
-            data = codec.to_bytes(contig)
+        for data in seqs:
             slen = int(data.shape[0])
             if slen < min(params.window_size, params.kmer_size, l):
                 warnings.warn(
@@ -431,7 +450,7 @@ class ShardedSession:
                 blocks.append(np.asarray(data[: n_frag * l]).reshape(n_frag, l))
             total_fragments += n_frag
             total_length += slen
-        return blocks, total_fragments, total_length
+        return blocks, total_fragments, total_length, upper
 
     def _frag_bucket(self, need: int) -> int:
         """Pass capacity for ``need`` fragments: powers of two from 256 up
@@ -467,7 +486,10 @@ class ShardedSession:
         """Fill host staging slot ``slot`` with one group's fragment block:
         rows of fragments, zero-padded to ``Fcap``, and each row's
         query-genome slot.  Waits first until the slot's previous copies to
-        the devices have landed."""
+        the devices have landed.  Returns ``(frags, frag_qg, rows,
+        toupper)``: ``toupper`` is false when the rows are uppercase
+        already, as in a group that holds a genome `_fragments` converted
+        on the host, whose other genomes are uppercased here."""
         l = self.params.min_read_length
         buf = self._slots.get(slot)
         if buf is not None:
@@ -482,20 +504,25 @@ class ShardedSession:
             ]
         frags, frag_qg = buf[0][:Fcap], buf[1][:Fcap]
         fr, qg = frags.numpy(), frag_qg.numpy()
+        host_upper = any(per_genome[gi][3] for gi in group)
         row = 0
         for qslot, gi in enumerate(group):
-            for block in per_genome[gi][0]:
+            blocks, _, _, upper = per_genome[gi]
+            for block in blocks:
                 n = block.shape[0]
+                if host_upper and not upper:
+                    block = codec.upper_inplace(block)
                 fr[row : row + n, :l] = block
                 qg[row : row + n] = qslot
                 row += n
         fr[row:] = 0
         qg[row:] = 0
-        return frags, frag_qg, row
+        return frags, frag_qg, row, not host_upper
 
-    def _pass(self, frags, frag_qg, m_values, slot: int | None = None):
+    def _pass(self, frags, frag_qg, m_values, slot: int | None = None, toupper: bool = True):
         """Enqueue one pass of a staged ``(Fcap, l + 4)`` fragment block on
-        every local cell, merge the cells and fold each shard.  Returns
+        every local cell (each device uppercases its rows unless
+        ``toupper`` is false), merge the cells and fold each shard.  Returns
         the pass's outputs packed in one int64 tensor on the merge device,
         `_unpack` lays them out; nothing here waits for a device."""
         params = self.params
@@ -506,8 +533,9 @@ class ShardedSession:
         for d, _, dev in self._cells:
             if (dev, d) not in inputs:
                 rows = slice(d * Fd, (d + 1) * Fd)
+                block = frags[rows].to(dev, non_blocking=True)
                 inputs[dev, d] = (
-                    frags[rows].to(dev, non_blocking=True),
+                    _toupper(block) if toupper else block,
                     frag_qg[rows].to(dev, non_blocking=True),
                 )
         if slot is not None:  # the slot may be rewritten once these land
@@ -595,9 +623,10 @@ class ShardedSession:
             for g_i, group in enumerate(groups):
                 need = sum(per_genome[gi][1] for gi in group)
                 Fcap = force_bucket or self._frag_bucket(need)
-                frags, frag_qg, row = self._stage(per_genome, group, g_i % 2, Fcap)
+                frags, frag_qg, row, toupper = self._stage(per_genome, group, g_i % 2, Fcap)
                 self.stats["dispatches"] += 1
-                pending.append((group, self._pass(frags, frag_qg, m_values, g_i % 2), row, Fcap))
+                packed = self._pass(frags, frag_qg, m_values, g_i % 2, toupper)
+                pending.append((group, packed, row, Fcap))
 
             out = []
             flags = np.zeros(_N_FLAGS, np.int64)
@@ -715,7 +744,7 @@ class ShardedSession:
         results = [[] for _ in per_genome]
         for group, counts, isum_q17 in self._run_groups(per_genome, groups):
             for slot, gi in enumerate(group):
-                _, total_fragments, total_length = per_genome[gi]
+                _, total_fragments, total_length, _ = per_genome[gi]
                 hits = []
                 for sh in range(sidx.n_shards):
                     for gj, name in enumerate(sidx.genome_names[sh]):

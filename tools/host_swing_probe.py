@@ -3,15 +3,22 @@
     python3 tools/host_swing_probe.py [--genomes 64] [--reps 5]
 
 Times ``ShardedSession._fragments``, the host step that cuts every query
-genome into fragments (``codec.to_bytes``: a copy and an upper-casing
-table lookup, each into a new array), over the first ``--genomes``
-genomes of ``bench_torch.workloads.ava_genomes`` (seed 7), ``--reps``
-times in each of four settings:
+genome into fragments (views of its raw bytes, ``codec.raw_bytes``: the
+card uppercases them after the staging copy), over the first
+``--genomes`` genomes of ``bench_torch.workloads.ava_genomes`` (seed 7),
+``--reps`` times in each of three settings:
 
 * ``as_run``: as a query pass runs it;
 * ``gc_off``: with Python's garbage collector off;
 * ``pinned``: with the process pinned to one CPU;
-* ``touched``: the same lookup into one output buffer written before,
+
+and, in the same way, the host conversion ``_fragments`` ran before the
+card took the uppercase, split into its parts:
+
+* ``to_bytes``: ``codec.to_bytes`` of each genome, a copy and an
+  upper-casing table lookup, each into a new array;
+* ``copy``: the copy alone, ``bytes(memoryview(genome))``;
+* ``touched``: the lookup alone, into one output buffer written before,
   so without the first-touch page faults of new arrays.
 
 Also the NumPy copy rate into a buffer written before and into a new one,
@@ -55,6 +62,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch.ops import codec
     from pyfastani_tpu_torch.session import ShardedSession
 
     genomes = workloads.ava_genomes(7, n_genomes=args.genomes)
@@ -87,6 +95,8 @@ def main(argv=None) -> int:
         result["pinned"] = _rates(fragments, mbp, args.reps)
     finally:
         os.sched_setaffinity(0, cpus)
+    result["to_bytes"] = _rates(lambda: [codec.to_bytes(g) for g in genomes], mbp, args.reps)
+    result["copy"] = _rates(lambda: [bytes(memoryview(g)) for g in genomes], mbp, args.reps)
     result["touched"] = _rates(touched, mbp, args.reps)
 
     src = np.ones(1 << 30, np.uint8)

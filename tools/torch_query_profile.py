@@ -15,9 +15,10 @@ steady ``query_many`` passes reports:
   sweep, gate and CGI) and around the identity fold, with the host wall
   time of the pass;
 * host wall time of the session's host steps: cutting the queries into
-  fragments (``_fragments``, which runs ``codec.to_bytes``), filling the
-  staging slots (``_stage``) and the final read-back, which waits for the
-  device (``_read_back``);
+  fragments (``_fragments``, which views their raw bytes; the card
+  uppercases them after the staging copy), filling the staging slots
+  (``_stage``) and the final read-back, which waits for the device
+  (``_read_back``);
 * the device's busy and idle share and the top kernels by device time,
   from ``torch.profiler`` through ``pyfastani_tpu_torch.utils.profiling``
   (the Chrome trace lands in ``build/torch_query_profile/``).
