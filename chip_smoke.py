@@ -49,7 +49,8 @@ result:
 10. the all-vs-all of ``bench.py`` (`ava_genomes`: 512 genomes, 1408 Mbp)
     through ``Sketch`` -> ``add_genome`` -> ``index()`` ->
     ``Session(mapper)`` -> ``warmup()`` -> ``query_many`` of every genome,
-    a first pass timed apart and a steady one: step times, Mbp/s, pairs/s,
+    a first pass timed apart and a steady one: step times (the park's
+    check that the store is in position order timed alone), Mbp/s, pairs/s,
     groups, fragments, budgets, escalations and the peak device memory of
     each pass; every genome hits exactly the 8
     genomes of its family and its sibling family, itself at identity 100
@@ -84,6 +85,19 @@ import time
 
 import numpy as np
 
+# the benchmark's generator and roofline work, one copy: the smoke's bound
+# reads the same work as the benchmark's l2_kernel_roofline_share
+from bench_torch import workloads
+from bench_torch.work import l2_chunks_work
+from bench_torch.workloads import (  # noqa: F401 (CROSS_RATE: the tests read it here)
+    AVA_FAMILY,
+    AVA_GENOMES,
+    AVA_LENGTHS,
+    CROSS_RATE,
+    MUT_RATE,
+    ava_expected,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # phase 3: synthetic minimizer store and chunks at the query path's shapes
@@ -98,20 +112,15 @@ WIDE_N, WIDE_RMAX = 4096, 8064  # the largest presized range: > 48 KB smem
 HUGE_N, HUGE_RMAX = 2048, 16128
 CMW, CMAX = 2985, 3072  # k = 16, l = 3000
 TIMING_REPS = 10
-# the bound: H100 SXM memory rate, and int32 rate = 132 SMs x 64 INT32
-# lanes x 1.98 GHz (the published 67 TFLOP/s float32 peak over four)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
 
-# phase 4: the small-batch workload of bench.py
-N_REFS, REF_LEN, N_QUERIES, MUT_RATE = 10, 2_000_000, 4, 0.03
+# phase 4: the small-batch workload of bench.py (mutated at MUT_RATE, 3%)
+N_REFS, REF_LEN, N_QUERIES = 10, 2_000_000, 4
 # phase 6: 8 queries in groups of 2
 PIPE_QUERIES, PIPE_Q_CAPACITY, PIPE_FRAG_CAPACITY = 8, 2, 2048
-# the all-vs-all of bench.py: 512 genomes in families of 4 mutants (3%) of
-# an ancestor, every second family descending from the one before at 9%,
-# family lengths cycling 1/2/3/5 Mbp (1408 Mbp); seed 7
-AVA_GENOMES, AVA_FAMILY, AVA_SEED, CROSS_RATE = 512, 4, 7, 0.09
-AVA_LENGTHS = (1_000_000, 2_000_000, 3_000_000, 5_000_000)
+# the all-vs-all of bench.py (`bench_torch.workloads`): 512 genomes in
+# families of 4 mutants (3%) of an ancestor, every second family descending
+# from the one before at 9%, family lengths cycling 1/2/3/5 Mbp (1408 Mbp)
+AVA_SEED = 7
 AVA_HITS_PER_GENOME = 2 * AVA_FAMILY  # its own family and its sibling family
 NCCL_TIMEOUT = 300
 # phase 9: budgets small enough that phase 4's panel escalates (the tiny
@@ -192,54 +201,7 @@ def time_ms(fn, args, reps: int = TIMING_REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_work(args) -> dict:
-    """The least work of one `l2_chunks` call on these inputs: the bytes
-    it must move (the store entries its live ranges cover, the sketch
-    rows it searches, the chunk operands and outputs, each once) and its
-    integer operations (4 per range entry for the membership probe and
-    the interval start, ``n_in log2 n_in`` to sort a chunk's in-sketch
-    starts, two ``log2(n_in + 1)``-step searches per anchor)."""
-    import torch
-
-    from pyfastani_tpu_torch._common import i32_to_hash
-
-    q, s_sizes, mh, wpos, _, lo, rlen, frag, c0, clen, _, rmax = args
-    F, S = q.shape
-    M, N = mh.shape[0], lo.shape[0]
-    lo64, n = lo.long(), rlen.long().clamp(0, rmax)
-    bad = (lo64 < 0) | (lo64 + n > M) | (frag < 0) | (frag >= F)
-    ids = torch.nonzero((n > 0) & (clen > 0) & ~bad).reshape(-1)
-    cover = torch.zeros(M + 1, dtype=torch.int64, device=q.device)
-    cover.index_add_(0, lo64[ids], torch.ones_like(ids))
-    cover.index_add_(0, lo64[ids] + n[ids], -torch.ones_like(ids))
-    covered = int((torch.cumsum(cover, 0)[:M] > 0).sum())
-    rows = torch.unique(frag[ids]).long()
-    row_words = int(s_sizes[rows].long().clamp(0, S).sum()) + rows.numel()
-    nbytes = 12 * covered + 4 * row_words + 4 * 8 * N + 4
-
-    ops = 0
-    R = int(n[ids].max()) if ids.numel() else 0
-    j = torch.arange(max(R, 1), device=q.device)[None, :]
-    for s0 in range(0, ids.numel(), 4096):
-        b = ids[s0 : s0 + 4096]
-        valid = j < n[b][:, None]
-        g = (lo64[b][:, None] + j).clamp(0, M - 1)
-        h = i32_to_hash(mh[g])
-        p = wpos[g].long()
-        rowq = q[frag[b].long()]
-        s_eff = s_sizes[frag[b].long()].long().clamp(max=S)[:, None]
-        at = torch.searchsorted(rowq, h)
-        n_in = (valid & (at < s_eff) & (rowq.gather(1, at.clamp(max=S - 1)) == h)).sum(1)
-        cc0 = c0[b].long()[:, None]
-        anchors = (valid & (p >= cc0) & (p < cc0 + clen[b].long()[:, None])).sum(1)
-        lg = torch.ceil(torch.log2(n_in.double() + 1))
-        ops += int((4 * n[b] + n_in * lg + 2 * anchors * lg).sum())
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops / INT32_OPS_PER_S
-    return dict(
-        live=int(ids.numel()), entries=int(n[ids].sum()), bytes=nbytes, ops=ops,
-        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-    )
+mutate = workloads._mutate
 
 
 def kernel_device_ms(fn, args, reps: int = 20, tries: int = 3) -> float:
@@ -300,7 +262,7 @@ def check_kernel(name: str, args, gpu: str) -> dict:
     kern_b = time_ms(l2.l2_chunks, args)
     plain_b = time_ms(l2.l2_chunks_reference, args)
     alone = kernel_device_ms(l2.l2_chunks, args)
-    work = kernel_work(args)
+    work = l2_chunks_work(args)
     kern_ms, plain_ms = min(kern_a, kern_b), min(plain_a, plain_b)
     log(
         f"[3] l2_chunks {name}: N={n} chunks ({work['live']} live, {work['entries']} range "
@@ -359,38 +321,9 @@ def capture_l2_operands(session, batch):
     return hits, captured[0]
 
 
-def mutate(rng, base: np.ndarray, rate: float) -> np.ndarray:
-    arr = base.copy()
-    idx = rng.random(arr.shape[0]) < rate
-    arr[idx] = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=int(idx.sum()))
-    return arr
-
-
-def ava_genomes(n_genomes: int, lengths=AVA_LENGTHS):
-    """The all-vs-all panel of ``bench.py::_ava_genomes``, byte for byte:
-    ``n_genomes`` genomes in families of `AVA_FAMILY` mutants of a shared
-    ancestor; every odd family's ancestor is the even family's mutated at
-    `CROSS_RATE`, and the pairs of families cycle through ``lengths``."""
-    rng = np.random.default_rng(AVA_SEED)
-    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
-    out = []
-    prev_base = None
-    for fam in range(-(-n_genomes // AVA_FAMILY)):
-        if fam % 2 == 1 and prev_base is not None:
-            base = mutate(rng, prev_base, CROSS_RATE)
-        else:
-            base = rng.choice(alphabet, size=lengths[(fam // 2) % len(lengths)])
-        prev_base = base
-        for _ in range(min(AVA_FAMILY, n_genomes - len(out))):
-            out.append(mutate(rng, base, MUT_RATE).tobytes())
-    return out
-
-
-def ava_expected(i: int):
-    """The names genome ``i`` of `ava_genomes` hits: the 8 genomes of its
-    family and of its sibling family."""
-    pair = (i // AVA_FAMILY) // 2
-    return {f"g{j}" for j in range(2 * AVA_FAMILY * pair, 2 * AVA_FAMILY * (pair + 1))}
+def ava_genomes(n_genomes: int = AVA_GENOMES, lengths=AVA_LENGTHS):
+    """`bench_torch.workloads.ava_genomes` at the smoke's seed, 7."""
+    return workloads.ava_genomes(AVA_SEED, n_genomes, lengths)
 
 
 def genomes():
@@ -766,6 +699,7 @@ def phase_ava(gpu: str):
     import torch
 
     import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch import _native
     from pyfastani_tpu_torch.session import Session
 
     n_genomes = AVA_GENOMES
@@ -781,11 +715,19 @@ def phase_ava(gpu: str):
     t0 = time.perf_counter()
     mapper = sketch.index()
     t_index = time.perf_counter() - t0
+    # the park's check that the store is in position order, which its
+    # order-based shortcuts need, timed alone on the same store
+    t0 = time.perf_counter()
+    ordered = _native.position_ordered(mapper._index.mini_seqid, mapper._index.mini_wpos)
+    t_order = time.perf_counter() - t0
+    if not ordered:
+        raise AssertionError("all-vs-all: the ingested store is not in position order")
     log(
         f"[10] all-vs-all panel: {n_genomes} genomes (families of {AVA_FAMILY}, "
         f"lengths {'/'.join(str(n // 10**6) for n in AVA_LENGTHS)} Mbp), {qbp} bp; generated in "
         f"{t_gen:.3f} s, ingested (host C winnow) in {t_ingest:.3f} s, indexed in "
-        f"{t_index:.3f} s: {mapper._index.n_minimizers} minimizers ({gpu})"
+        f"{t_index:.3f} s: {mapper._index.n_minimizers} minimizers, in position order "
+        f"(checked in {1e3 * t_order:.1f} ms) ({gpu})"
     )
 
     t0 = time.perf_counter()

@@ -13,8 +13,11 @@ compiler's output; there is no NumPy fallback.
 
 The raw C functions are this module's attributes (``copy_upper``,
 ``csr_bounds``, ``hist_prefix``, ``max_window_count``, ``murmur3_32``,
-``parse_fasta``, ``reverse_complement``, ``sort_u32_perm``, ``take32``,
-``winnow``); the other functions wrap them for NumPy arrays.
+``parse_fasta``, ``position_ordered``, ``reverse_complement``,
+``sort_u32_perm``, ``take32``, ``winnow``); the other functions wrap them
+for NumPy arrays.  The sort, the gather and the CSR bounds hold their
+element counts and positions in int32: past 2^31 - 1 elements they raise
+``OverflowError``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ __all__ = [
     "csr_groups",
     "densest_window",
     "load",
+    "position_ordered",
     "prefix_hist",
     "take_4byte",
 ]
@@ -44,7 +48,8 @@ __all__ = [
 _C_FUNCTIONS = frozenset(
     [
         "copy_upper", "csr_bounds", "hist_prefix", "max_window_count", "murmur3_32",
-        "parse_fasta", "reverse_complement", "sort_u32_perm", "take32", "winnow",
+        "parse_fasta", "position_ordered", "reverse_complement", "sort_u32_perm",
+        "take32", "winnow",
     ]
 )
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -117,10 +122,23 @@ def argsort_u32_stable(keys):
 
 
 def take_4byte(values, idx):
-    """values[idx] for 4-byte-element arrays (threaded C gather)."""
+    """values[idx] for 4-byte-element arrays (threaded C gather).
+
+    The gather reads raw 4-byte lanes, so any other element size raises
+    `TypeError`; ``idx`` is taken as int32, and an index outside int32
+    raises `ValueError` rather than wrapping."""
     v = np.ascontiguousarray(values)
-    ix = np.ascontiguousarray(idx, dtype=np.int32)
-    return np.frombuffer(load().take32(v.data, ix.data), dtype=values.dtype)
+    if v.dtype.itemsize != 4:
+        raise TypeError(f"take_4byte needs 4-byte elements, got {v.dtype}")
+    ix = np.asarray(idx)
+    if ix.dtype != np.int32:
+        if ix.dtype.kind not in "iu":
+            raise TypeError(f"take_4byte needs integer indices, got {ix.dtype}")
+        info = np.iinfo(np.int32)
+        if ix.size and (ix.min() < info.min or ix.max() > info.max):
+            raise ValueError("take_4byte indices lie outside int32")
+    ix = np.ascontiguousarray(ix, dtype=np.int32)
+    return np.frombuffer(load().take32(v.data, ix.data), dtype=v.dtype)
 
 
 def csr_groups(sorted_keys):
@@ -133,6 +151,14 @@ def csr_groups(sorted_keys):
         np.frombuffer(rs, dtype=np.int32),
         np.frombuffer(rl, dtype=np.int32),
     )
+
+
+def position_ordered(seqid, wpos) -> bool:
+    """Whether a minimizer store lies in nondecreasing ``(seqid, wpos)``
+    order (one C pass over the two int32 planes)."""
+    s = np.ascontiguousarray(seqid, dtype=np.int32)
+    w = np.ascontiguousarray(wpos, dtype=np.int32)
+    return load().position_ordered(s.data, w.data)
 
 
 def prefix_hist(keys, shift, bits):

@@ -2,7 +2,10 @@
  *
  * A copy of pyfastani_tpu/_native/fastamod.c, so that the port needs
  * nothing of the JAX package; pyfastani_tpu_torch/_native/__init__.py
- * builds it with the host C compiler at first use.
+ * builds it with the host C compiler at first use.  Beyond the original:
+ * sort_u32_perm, take32 and csr_bounds refuse more than 2^31 - 1
+ * elements with OverflowError before they read or allocate, and
+ * position_ordered checks the order of a minimizer store.
  *
  * The reference implements its host-bound work natively: a FASTA reader
  * (src/pyfastani/_fasta.pyx), SIMD uppercase/reverse-complement
@@ -693,7 +696,7 @@ static PyObject *py_sort_u32_perm(PyObject *self, PyObject *args) {
     size_t n = (size_t)buf.len / 4;
     if (n > (size_t)INT32_MAX) {
         PyBuffer_Release(&buf);
-        PyErr_SetString(PyExc_ValueError, "more than 2^31 keys");
+        PyErr_SetString(PyExc_OverflowError, "more than 2^31 - 1 keys");
         return NULL;
     }
     PyObject *res = PyBytes_FromStringAndSize(NULL, (Py_ssize_t)(n * 4));
@@ -800,6 +803,12 @@ static PyObject *py_take32(PyObject *self, PyObject *args) {
     }
     size_t n = (size_t)idx.len / 4;
     size_t nv = (size_t)vals.len / 4;
+    if (n > (size_t)INT32_MAX) {
+        PyBuffer_Release(&vals);
+        PyBuffer_Release(&idx);
+        PyErr_SetString(PyExc_OverflowError, "more than 2^31 - 1 indices");
+        return NULL;
+    }
     const int32_t *ix = (const int32_t *)idx.buf;
     for (size_t i = 0; i < n; i++)
         if ((uint32_t)ix[i] >= nv) {
@@ -879,6 +888,11 @@ static PyObject *py_csr_bounds(PyObject *self, PyObject *args) {
         return NULL;
     }
     size_t n = (size_t)buf.len / 4;
+    if (n > (size_t)INT32_MAX) { /* row_start is int32 */
+        PyBuffer_Release(&buf);
+        PyErr_SetString(PyExc_OverflowError, "more than 2^31 - 1 keys");
+        return NULL;
+    }
     const uint32_t *keys = (const uint32_t *)buf.buf;
     size_t cut = n / 2;
     csrjob_t cj0 = {keys, 0, cut, 0, NULL, NULL};
@@ -931,6 +945,38 @@ static PyObject *py_csr_bounds(PyObject *self, PyObject *args) {
     PyObject *res = PyTuple_Pack(3, uq_b, rs_b, rl_b);
     Py_DECREF(uq_b); Py_DECREF(rs_b); Py_DECREF(rl_b);
     return res;
+}
+
+/* position_ordered: whether a minimizer store is in nondecreasing
+ * (seqid, wpos) order, in one pass that stops at the first step down.
+ * The index build's order-based shortcuts hold only for such a store. */
+static PyObject *py_position_ordered(PyObject *self, PyObject *args) {
+    Py_buffer sb, wb;
+    if (!PyArg_ParseTuple(args, "y*y*", &sb, &wb))
+        return NULL;
+    if (sb.len % 4 || sb.len != wb.len) {
+        PyBuffer_Release(&sb);
+        PyBuffer_Release(&wb);
+        PyErr_SetString(PyExc_ValueError, "buffers must be 4-aligned and of one length");
+        return NULL;
+    }
+    size_t n = (size_t)sb.len / 4;
+    const int32_t *s = (const int32_t *)sb.buf;
+    const int32_t *w = (const int32_t *)wb.buf;
+    int ordered = 1;
+    Py_BEGIN_ALLOW_THREADS
+    /* branch-free blocks (the compiler vectorises them), tested per block */
+    for (size_t lo = 1; lo < n && ordered; lo += 4096) {
+        size_t hi = lo + 4096 < n ? lo + 4096 : n;
+        int down = 0;
+        for (size_t i = lo; i < hi; i++)
+            down |= (s[i] < s[i - 1]) | ((s[i] == s[i - 1]) & (w[i] < w[i - 1]));
+        ordered = !down;
+    }
+    Py_END_ALLOW_THREADS
+    PyBuffer_Release(&sb);
+    PyBuffer_Release(&wb);
+    return PyBool_FromLong(ordered);
 }
 
 /* hist_prefix: histogram of (keys >> shift), threaded.
@@ -1050,6 +1096,8 @@ static PyMethodDef Methods[] = {
      "take32(vals_4byte_bytes, idx_i32_bytes) -> vals[idx] bytes"},
     {"csr_bounds", py_csr_bounds, METH_VARARGS,
      "csr_bounds(sorted_u32_bytes) -> (uniq u32, row_start i32, row_len i32)"},
+    {"position_ordered", py_position_ordered, METH_VARARGS,
+     "position_ordered(seqid_i32_bytes, wpos_i32_bytes) -> store in (seqid, wpos) order"},
     {"hist_prefix", py_hist_prefix, METH_VARARGS,
      "hist_prefix(u32_bytes, shift, bits) -> i32[2^bits] counts"},
     {"max_window_count", py_max_window_count, METH_VARARGS,

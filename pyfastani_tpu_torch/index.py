@@ -148,14 +148,6 @@ def _build_gpos_bucket(mini_gpos: np.ndarray):
     return out, shift, steps
 
 
-def _take_4byte(values: np.ndarray, idx: np.ndarray) -> np.ndarray:
-    """``values[idx]`` through the threaded C gather, which reads raw
-    4-byte elements: any other element size is refused here."""
-    if np.asarray(values).dtype.itemsize != 4:
-        raise TypeError(f"take_4byte needs 4-byte elements, got {values.dtype}")
-    return _native.take_4byte(values, idx)
-
-
 def build_sharded_index(mapper, n_shards: int) -> ShardedIndex:
     """Partition a Mapper's reference set by genome into ``n_shards``
     balanced sub-indexes (greedy bin packing by minimizer count)."""
@@ -261,17 +253,22 @@ def build_sharded_index(mapper, n_shards: int) -> ShardedIndex:
             else np.zeros(0, np.int32)
         )
 
-    prev = [mini_prev_from_index(s) for s in subs]
+    # both shortcuts below read the CSR sort permutation, which is the
+    # (hash, seqid, wpos) order only for a store in position order: one C
+    # pass per shard checks it
+    ordered = [_native.position_ordered(s.mini_seqid, s.mini_wpos) for s in subs]
+    prev = [mini_prev_from_index(s, o) for s, o in zip(subs, ordered)]
 
     # global positions of the hash-sorted postings: the CSR sort permutation
     # maps the position-ordered gpos into posting order; offset arithmetic
-    # for subs whose permutation is gone (live posting edits)
+    # for subs whose permutation is gone (live posting edits) or whose
+    # store is out of position order
     post_gpos = []
-    for (sub, _, _, _), gp, off in zip(shards, gpos, offsets):
+    for (sub, _, _, _), gp, off, o in zip(shards, gpos, offsets, ordered):
         m = int(sub.post_seqid.shape[0])
         order = getattr(sub, "order", None)
-        if order is not None and order.shape[0] == m == gp.shape[0]:
-            post_gpos.append(_take_4byte(gp, order))
+        if o and order is not None and order.shape[0] == m == gp.shape[0]:
+            post_gpos.append(_native.take_4byte(gp, order))
         else:
             post_gpos.append(
                 (off[sub.post_seqid].astype(np.int64) + sub.post_wpos).astype(np.int32)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _native
 from .._common import BIG, hash_to_i32, i32_to_hash
 
 __all__ = [
@@ -70,21 +71,27 @@ def compute_mini_prev(
     return out
 
 
-def mini_prev_from_index(sub) -> np.ndarray:
+def mini_prev_from_index(sub, ordered: bool | None = None) -> np.ndarray:
     """`compute_mini_prev` without the lexsort, from a ``PostingIndex``
     whose CSR sort permutation was kept (``sub.order``).
 
-    The postings are the minimizer store in (hash, seqid, wpos) order, so
-    the previous same-hash, same-contig occurrence is the preceding
-    posting unless a CSR row or a contig starts between them.  Falls back
-    to `compute_mini_prev` when the permutation is absent (an index
-    rebuilt through live posting edits).
+    The stable hash sort of a store in (seqid, wpos) order puts the
+    postings in (hash, seqid, wpos) order, so the previous same-hash,
+    same-contig occurrence is the preceding posting unless a CSR row or a
+    contig starts between them.  Falls back to `compute_mini_prev` when
+    the permutation is absent (an index rebuilt through live posting
+    edits) or the store is not in position order; ``ordered`` is that
+    order if the caller has checked it (`_native.position_ordered`).
     """
     m = int(sub.mini_hash.shape[0])
     if m == 0:
         return np.zeros(0, np.int32)
     order = getattr(sub, "order", None)
     if order is None or order.shape[0] != m or sub.post_seqid.shape[0] != m:
+        return compute_mini_prev(sub.mini_hash, sub.mini_seqid, sub.mini_wpos)
+    if ordered is None:
+        ordered = _native.position_ordered(sub.mini_seqid, sub.mini_wpos)
+    if not ordered:
         return compute_mini_prev(sub.mini_hash, sub.mini_seqid, sub.mini_wpos)
     newrow = np.zeros(m, bool)
     newrow[np.asarray(sub.row_start, dtype=np.int64)] = True

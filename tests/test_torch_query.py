@@ -167,7 +167,7 @@ def test_build_sharded_index_matches_jax(genomes):
         assert tidx._l2_kernel_rows(n) == jsh._l2_kernel_rows(n)
         assert tidx._round_up(n, 256) == jsh._round_up(n, 256)
     with pytest.raises(TypeError, match="4-byte"):
-        tidx._take_4byte(np.zeros(4, np.int64), np.zeros(2, np.int32))
+        tidx._native.take_4byte(np.zeros(4, np.int64), np.zeros(2, np.int32))
 
 
 def test_npz_from_jax_package_loads_in_port(genomes, tmp_path):

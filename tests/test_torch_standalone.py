@@ -5,9 +5,9 @@ with the JAX package (``stats``, ``Parameters``, ``codec``, the host NumPy
 engine and its hashing and winnowing, the FASTA reader, the C extension
 ``fastamod.c``, the result types and the facade).  These tests pin that:
 
-* no module of the port, of its benchmark ``bench_torch/``, nor
-  ``chip_smoke.py``, imports ``jax`` or ``pyfastani_tpu`` (read from
-  their syntax trees);
+* no module of the port, no type stub of it (``*.pyi``), no module of
+  its benchmark ``bench_torch/``, nor ``chip_smoke.py``, imports ``jax``
+  or ``pyfastani_tpu`` (read from their syntax trees);
 * a process that imports every module of the port and runs sketch, index,
   query, session, pickle and the ``.npz`` checkpoint ends with neither
   loaded;
@@ -37,10 +37,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "pyfastani_tpu_torch"
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 
-# the port, its benchmark, its smoke test and its tools
+# the port and its type stubs, its benchmark, its smoke test and its tools
 BENCH = "bench_torch"
 _SOURCES = sorted(
     glob.glob(os.path.join(ROOT, PACKAGE, "**", "*.py"), recursive=True)
+    + glob.glob(os.path.join(ROOT, PACKAGE, "**", "*.pyi"), recursive=True)
     + glob.glob(os.path.join(ROOT, BENCH, "*.py"))
 ) + [
     os.path.join(ROOT, name)
@@ -61,7 +62,7 @@ def _imports(path: str):
     """``(line, absolute module name)`` of every import in ``path``, with
     relative imports resolved against the file's package."""
     rel = os.path.relpath(path, ROOT)
-    package = rel[:-3].split(os.sep)[:-1]
+    package = os.path.splitext(rel)[0].split(os.sep)[:-1]
     with open(path) as fh:
         tree = ast.parse(fh.read(), filename=rel)
     for node in ast.walk(tree):
@@ -89,8 +90,11 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 
 def test_sources_cover_the_whole_package():
     names = {os.path.relpath(p, ROOT) for p in _SOURCES}
-    for path in glob.glob(os.path.join(ROOT, PACKAGE, "**", "*.py"), recursive=True):
-        assert os.path.relpath(path, ROOT) in names
+    for pattern in ("*.py", "*.pyi"):
+        for path in glob.glob(os.path.join(ROOT, PACKAGE, "**", pattern), recursive=True):
+            assert os.path.relpath(path, ROOT) in names
+    for stub in ("_sketch.pyi", "_types.pyi"):
+        assert os.path.join(PACKAGE, "models", stub) in names
     for module in ("__init__", "reference", "run", "spans", "work", "workloads"):
         assert os.path.join(BENCH, f"{module}.py") in names
     assert "chip_smoke.py" in names

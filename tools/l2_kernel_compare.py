@@ -172,7 +172,7 @@ def main() -> int:
         t_a2 = cs.time_ms(a_fn, args)
         d_a = cs.kernel_device_ms(a_fn, args)
         d_b = cs.kernel_device_ms(b_fn, args)
-        work = cs.kernel_work(args)
+        work = cs.l2_chunks_work(args)
         print(
             f"{name}: {args[5].shape[0]} chunks ({work['live']} live, {work['entries']} range "
             f"entries), rmax {args[11]}, S {args[0].shape[1]}; both bitwise equal to the plain "
