@@ -5,13 +5,14 @@ Run from the root of a checkout, with one NVIDIA Hopper card visible:
     python3 chip_smoke.py
 
 It builds the port's host C extension (``pyfastani_tpu_torch/_native/``)
-and CUDA kernel (``pyfastani_tpu_torch/csrc/``) and runs these phases in
+and CUDA kernels (``pyfastani_tpu_torch/csrc/``) and runs these phases in
 order, one line each; any failure exits non-zero without printing a
 result:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; exits 1 when ``torch.cuda.is_available()`` is false;
-2. the two builds (host C compiler, nvcc), timed;
+2. the two builds (host C compiler, nvcc: one process per kernel source,
+   side by side), timed;
 3. the L2 chunk kernel against its plain torch version, bitwise (the
    range flag included, also on chunks that leave the store), on CUDA
    tensors: a synthetic ``main`` case at the small batch's budgets, a
@@ -21,7 +22,7 @@ result:
    of one L2 sweep of phase 4's small batch; after phase 10, ``ava``, the
    first L2 sweep of the all-vs-all.  Each with the kernel's and the
    plain version's times, the kernel alone in device time
-   (``torch.profiler``), and its bound;
+   (``torch.profiler``), and its bound; then phase 12;
 4. the query path at a real size (10 random 2 Mbp references, 4 queries
    mutated at 3%): ``Sketch`` -> ``index()`` -> ``Mapper.query_genome``
    and ``Session.query_many``, held against the port's host NumPy engine
@@ -63,15 +64,27 @@ result:
     batch as uppercase ``bytes``, lowercase ``bytes``, a mixed-case
     ``bytearray`` and a mixed-case uint8 ``ndarray``: the session stages
     raw bytes and the card uppercases them, so each kind's hits equal
-    phase 4's; each pass's ``_fragments`` and ``_stage`` milliseconds.
+    phase 4's; each pass's ``_fragments`` and ``_stage`` milliseconds;
+12. (run after phase 3) the fragment winnow kernel
+    (``csrc/winnow_fragments.cu``) against its plain torch version,
+    bitwise (sketch, sizes, overflow flag), on CUDA tensors: the edge
+    cases of `WINNOW_CASES` (palindromes, runs of N and other bytes, the
+    window-0 quirk, an overflow, k not a multiple of 4, protein at w 1,
+    one fragment, no window, a length past shared memory: the scratch
+    variant) and ``main``, the all-vs-all's shape (4096 fragments of
+    3000 bytes, k 16, w 24, pad 4); and, captured from the path, ``real``
+    (phase 4's first group) and ``ava`` (the all-vs-all's first group).
+    ``main``, ``real`` and ``ava`` with the kernel's and the plain
+    version's times, the kernel alone in device time and its bound.
 
-Phases 4 to 6, 9, 10 and 11 each reset the kernel's launch counters before
-their run and fail unless the kernel ran and its plain version did not.
-The last lines are the card, a JSON object with one entry per kernel
-(launches summed over phases 4 to 6, 9, 10's steady pass and 11, times and
-bound at the ``real`` case, which its ``case`` key names), and
-``{"ok": true, "device": {...}}``.  Takes no arguments.  Imports neither
-JAX nor anything of ``pyfastani_tpu``, and fails if either was loaded.
+Phases 4 to 6, 9, 10 and 11 each reset the kernels' launch counters
+before their run and fail unless every kernel ran and no plain version
+did.  The last lines are the card, a JSON object with one entry per
+kernel (launches summed over phases 4 to 6, 9, 10's steady pass and 11;
+times and bound at the case its ``case`` key names: ``real`` for the L2
+kernel, ``ava`` for the winnow), and ``{"ok": true, "device": {...}}``.
+Takes no arguments.  Imports neither JAX nor anything of
+``pyfastani_tpu``, and fails if either was loaded.
 """
 
 from __future__ import annotations
@@ -88,7 +101,7 @@ import numpy as np
 # the benchmark's generator and roofline work, one copy: the smoke's bound
 # reads the same work as the benchmark's l2_kernel_roofline_share
 from bench_torch import workloads
-from bench_torch.work import l2_chunks_work
+from bench_torch.work import HBM_BYTES_PER_S, INT32_OPS_PER_S, l2_chunks_work
 from bench_torch.workloads import (  # noqa: F401 (CROSS_RATE: the tests read it here)
     AVA_FAMILY,
     AVA_GENOMES,
@@ -130,6 +143,16 @@ ESCALATE_BUDGETS = dict(hmax=32, ivmax=1, t_chunks=4, smax=128)
 # phase 10: the host engine's check of g0 and g4 keeps g0 alone when the
 # two would take longer than this
 ORACLE_SECONDS = 90.0
+# phase 12: the kernel's working store is about 11 bytes a position, so a
+# fragment this long passes the card's 227 KB of opt-in shared memory
+WINNOW_SCRATCH_LENGTH = 30_000
+WINNOW_CASES = (
+    "nucl_edges", "all_bytes", "overflow", "k15", "k18", "k5", "protein_w1",
+    "one_fragment", "wide_window", "no_window", "scratch",
+)
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+_NUCL = np.frombuffer(b"ACGTN", np.uint8)
+_PROT = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", np.uint8)
 
 
 def log(msg: str) -> None:
@@ -204,12 +227,13 @@ def time_ms(fn, args, reps: int = TIMING_REPS) -> float:
 mutate = workloads._mutate
 
 
-def kernel_device_ms(fn, args, reps: int = 20, tries: int = 3) -> float:
-    """Device time of the L2 kernel (either variant) alone per call, from a
-    ``torch.profiler`` trace of ``reps`` calls.  A trace that holds none of
-    the kernel's device time (seen once among the smoke's runs on an H100,
-    and not again in the same sequence of calls) is taken again, up to
-    ``tries`` traces; then it raises."""
+def kernel_device_ms(fn, args, key: str = "l2_chunks", reps: int = 20, tries: int = 3) -> float:
+    """Device time of a kernel alone per call (the device kernels whose
+    names hold ``key``: either variant), from a ``torch.profiler`` trace
+    of ``reps`` calls.  A trace that holds none of the kernel's device
+    time (seen once among the smoke's runs on an H100, and not again in
+    the same sequence of calls) is taken again, up to ``tries`` traces;
+    then it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -222,7 +246,7 @@ def kernel_device_ms(fn, args, reps: int = 20, tries: int = 3) -> float:
                 fn(*args)
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in device if "l2_chunks" in e.key)
+        total = sum(e.self_device_time_total for e in device if key in e.key)
         if total > 0:
             return total / 1e3 / reps
         log(f"torch.profiler recorded no device time of the kernel ({len(device)} device "
@@ -289,36 +313,197 @@ def phase_kernel(device, gpu: str) -> None:
         check_kernel(name, kernel_case(rng, n, rmax, device), gpu)
 
 
+def _frag_rows(rng, alphabet, n_frag: int, length: int, pad: int = 4):
+    frags = np.zeros((n_frag, length + pad), np.uint8)
+    frags[:, :length] = rng.choice(alphabet, size=(n_frag, length))
+    return frags
+
+
+def _edge_rows(rng, length: int):
+    """Random ACGT fragments with the edge cases written into the first
+    ones."""
+    frags = _frag_rows(rng, _ACGT, 8, length)
+    frags[0, :length] = ord("A")  # poly-A: one hash everywhere
+    frags[1, : length // 3] = ord("A")  # starts on a repeated hash
+    frags[2, :length] = np.resize(_ACGT, length)  # palindromes
+    frags[3, :length] = np.resize(np.frombuffer(b"AAAAAT", np.uint8), length)  # equal-hash ties
+    frags[4, 100:400] = ord("N")  # a run of N
+    frags[5, rng.random(length + 4) < 0.05] = ord("N")  # scattered N, also in the pad
+    frags[6, :60] = np.resize(_ACGT, 60)  # starts on palindromes
+    return frags
+
+
+def winnow_case(name: str):
+    """``(frags, k, w, length, protein, kc)`` of one case of
+    `WINNOW_CASES` (``frags`` a numpy array), made from a seed: the inputs
+    the winnow kernel has to get right."""
+    rng = np.random.default_rng(sum(name.encode()))
+    if name == "nucl_edges":
+        return _edge_rows(rng, 3000), 16, 24, 3000, False, 512
+    if name == "all_bytes":  # every byte value, the pad full of junk
+        return rng.integers(0, 256, size=(4, 1004), dtype=np.uint8), 16, 24, 1000, False, 1024
+    if name == "overflow":  # ~240 unique hashes against kc 64
+        return _frag_rows(rng, _NUCL, 3, 3000), 16, 24, 3000, False, 64
+    if name == "k15":
+        return _edge_rows(rng, 800), 15, 10, 800, False, 256
+    if name == "k18":
+        return _frag_rows(rng, _NUCL, 5, 777), 18, 7, 777, False, 300
+    if name == "k5":
+        return _edge_rows(rng, 500), 5, 4, 500, False, 500
+    if name == "protein_w1":
+        frags = _frag_rows(rng, _PROT, 3, 900)
+        frags[0, :900] = ord("W")
+        return frags, 8, 1, 900, True, 1024
+    if name == "one_fragment":
+        return _frag_rows(rng, _NUCL, 1, 3000), 16, 24, 3000, False, 512
+    if name == "wide_window":
+        return _edge_rows(rng, 3000), 16, 700, 3000, False, 512
+    if name == "no_window":  # w > positions: no window, empty sketches
+        return _frag_rows(rng, _ACGT, 2, 40), 16, 30, 40, False, 64
+    if name == "scratch":
+        frags = _frag_rows(rng, _NUCL, 2, WINNOW_SCRATCH_LENGTH)
+        frags[0, :5000] = ord("A")
+        return frags, 16, 24, WINNOW_SCRATCH_LENGTH, False, 4096
+    raise KeyError(name)
+
+
+def winnow_work(args, s_sizes) -> dict:
+    """The least work of one ``winnow_fragments(*args)`` call whose sketch
+    sizes are ``s_sizes``, for its roofline bound.  Bytes: each fragment's
+    ``length`` bytes and the complement table read once, the sketch, sizes
+    and flag written once.  int32 operations a position: per strand,
+    Murmur3's 7 a 4-byte block, 5 for a tail and 9 to finish; 2 to choose
+    the canonical strand; 3 for the window minimum (prefix and suffix
+    minima over blocks of w, then their minimum); 4 for the record test
+    and its compaction.  Then ``s log2 s`` to sort each sketch of ``s``
+    hashes."""
+    import torch
+
+    frags, k, w, length, protein, kc = args
+    F = frags.shape[0]
+    n_pos = max(0, length - k + 1)
+    wout = max(0, min(kc, length - k - w + 2))
+    strands = 1 if protein else 2
+    per_pos = strands * (7 * (k // 4) + 5 * (k % 4 > 0) + 9) + 2 * (strands - 1) + 3 + 4
+    s = s_sizes.double().cpu()
+    sort = int((s * torch.ceil(torch.log2(s + 1))).sum())
+    nbytes = F * length + 256 + F * wout * 8 + F * 4 + 4
+    ops = F * n_pos * per_pos + sort
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    return dict(
+        bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
+def _winnow_err(got, want) -> int:
+    """The largest absolute difference of sketch and sizes (0 when equal);
+    raises when the flags, shapes or types differ."""
+    if got[0].dim() != 0 or bool(got[0]) != bool(want[0]):
+        raise AssertionError(f"winnow_fragments overflow flag {got[0]} != plain {want[0]}")
+    for g, w in zip(got[1:], want[1:]):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"winnow_fragments output {g.shape} {g.dtype} != {w.shape} {w.dtype}")
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got[1:], want[1:]))
+
+
+def check_winnow(name: str, args, gpu: str, timed: bool = True) -> dict:
+    """The winnow kernel against its plain version on ``args`` (CUDA
+    tensors), bitwise; with ``timed``, both times (plain, kernel, kernel,
+    plain), the kernel alone in device time and the bound."""
+    import torch
+
+    from pyfastani_tpu_torch.ops import fragments
+
+    got = fragments.winnow_fragments(*args)
+    want = fragments.winnow_fragments_reference(*args)
+    torch.cuda.synchronize()
+    err = _winnow_err(got, want)
+    if err != 0:
+        raise AssertionError(f"winnow_fragments kernel differs from the plain version ({name}): {err}")
+    frags, k, w, length, protein, kc = args
+    s = want[2]
+    head = (f"[12] winnow_fragments {name}: F={frags.shape[0]} x {length} bytes (rows of "
+            f"{frags.shape[1]}), k={k}, w={w}, protein={protein}, kc={kc}: bitwise equal "
+            f"(sketch sizes {int(s.min()) if s.numel() else 0}-{int(s.max()) if s.numel() else 0}, "
+            f"overflow {bool(want[0])})")
+    if not timed:
+        log(f"{head} ({gpu})")
+        return dict(max_abs_err=err)
+    plain_a = time_ms(fragments.winnow_fragments_reference, args)
+    kern_a = time_ms(fragments.winnow_fragments, args)
+    kern_b = time_ms(fragments.winnow_fragments, args)
+    plain_b = time_ms(fragments.winnow_fragments_reference, args)
+    alone = kernel_device_ms(fragments.winnow_fragments, args, "winnow_fragments")
+    work = winnow_work(args, s)
+    log(
+        f"{head}; kernel {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
+        f"call, kernel alone {alone:.4f} ms of device time; bound {work['bound_ms']:.4f} ms by "
+        f"{work['bound_by']} ({work['bytes']} B = {work['bytes_ms']:.4f} ms, {work['ops']} int32 "
+        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
+    )
+    return dict(
+        max_abs_err=err, ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+        device_ms=alone, bound_ms=work["bound_ms"], bound_by=work["bound_by"], library_ms=None,
+    )
+
+
+def phase_winnow(device, gpu: str) -> None:
+    """Phase 12's synthetic cases: every edge case, then ``main``."""
+    import torch
+
+    from pyfastani_tpu_torch._build import load_library
+
+    lib = load_library()
+    for name in WINNOW_CASES:
+        frags, k, w, length, protein, kc = winnow_case(name)
+        scratch = lib.winnow_fragments_scratch_bytes(device.index, length, k, w, frags.shape[0])
+        if (scratch > 0) != (name == "scratch"):
+            raise AssertionError(f"winnow case {name}: {scratch} bytes of scratch")
+        args = (torch.from_numpy(frags).to(device), k, w, length, protein, kc)
+        check_winnow(f"{name}{' (the scratch variant)' if scratch else ''}", args, gpu, timed=False)
+    main = _frag_rows(np.random.default_rng(12), _ACGT, 4096, 3000)
+    check_winnow("main (the all-vs-all's shape)",
+                 (torch.from_numpy(main).to(device), 16, 24, 3000, False, 512), gpu)
+
+
 # operands of `l2_chunks` that are the session's parked store planes
 # (mini_hash, mini_wpos, mini_prev): no pass writes them
 STORE_OPERANDS = (2, 3, 4)
 
 
-def capture_l2_operands(session, batch):
-    """``(hits, operands)``: one ``session.query_many(batch)`` and the
-    operands of its first `l2_chunks` call, cloned but for the store
-    planes, which are kept by reference."""
+def capture_operands(session, batch):
+    """``(hits, l2_operands, winnow_operands)``: one
+    ``session.query_many(batch)`` and the operands of its first
+    `l2_chunks` and first `winnow_fragments` call, cloned but for the
+    store planes, which are kept by reference."""
     import torch
 
     from pyfastani_tpu_torch import session as session_module
 
-    captured = []
-    original = session_module.l2_chunks
+    captured = {}
+    originals = {name: getattr(session_module, name) for name in ("l2_chunks", "winnow_fragments")}
 
-    def capture(*args):
-        if not captured:
-            captured.append(tuple(
-                a.clone() if isinstance(a, torch.Tensor) and i not in STORE_OPERANDS else a
-                for i, a in enumerate(args)
-            ))
-        return original(*args)
+    def capturing(name, keep):
+        def capture(*args):
+            if name not in captured:
+                captured[name] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) and i not in keep else a
+                    for i, a in enumerate(args)
+                )
+            return originals[name](*args)
+        return capture
 
-    session_module.l2_chunks = capture
+    session_module.l2_chunks = capturing("l2_chunks", STORE_OPERANDS)
+    session_module.winnow_fragments = capturing("winnow_fragments", ())
     try:
         hits = session.query_many(batch)
     finally:
-        session_module.l2_chunks = original
-    return hits, captured[0]
+        for name, fn in originals.items():
+            setattr(session_module, name, fn)
+    return hits, captured["l2_chunks"], captured["winnow_fragments"]
 
 
 def ava_genomes(n_genomes: int = AVA_GENOMES, lengths=AVA_LENGTHS):
@@ -348,18 +533,24 @@ def hit_key(hits):
 
 
 def counted(run):
-    """``run()`` with the kernel's counters set to 0 just before it and
-    read just after: ``(result, launches)``; fails unless the kernel ran
-    and its plain version did not."""
-    from pyfastani_tpu_torch.ops import l2
+    """``run()`` with every kernel's counters set to 0 just before it and
+    read just after: ``(result, launches)``, ``launches`` a `Counter` by
+    kernel name; fails unless every kernel ran and no plain version did."""
+    from collections import Counter
 
-    l2.launches = 0
-    l2.reference_calls = 0
+    from pyfastani_tpu_torch.ops import fragments, l2
+
+    wrappers = {"l2_chunks": l2, "winnow_fragments": fragments}
+    for mod in wrappers.values():
+        mod.launches = 0
+        mod.reference_calls = 0
     out = run()
-    launches, plain_calls = l2.launches, l2.reference_calls
-    if launches <= 0 or plain_calls != 0:
+    launches = Counter({name: mod.launches for name, mod in wrappers.items()})
+    plain = {name: mod.reference_calls for name, mod in wrappers.items()}
+    if min(launches.values()) <= 0 or any(plain.values()):
         raise AssertionError(
-            f"the path ran the kernel {launches} times and the plain version {plain_calls} times"
+            f"the path ran the kernels {dict(launches)} times and their plain versions "
+            f"{plain} times"
         )
     return out, launches
 
@@ -368,7 +559,6 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
     import torch
 
     import pyfastani_tpu_torch as pt
-    from pyfastani_tpu_torch.ops import l2
     from pyfastani_tpu_torch.session import Session
 
     queries = all_queries[:N_QUERIES]
@@ -383,30 +573,32 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         f"({mapper._index.n_minimizers} minimizers, on the host; {gpu})"
     )
 
-    l2.launches = 0
-    l2.reference_calls = 0
-    t0 = time.perf_counter()
-    first = mapper.query_genome(queries[0])
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    session = Session(mapper)
-    torch.cuda.synchronize()
-    t_park = time.perf_counter() - t0
     batch = [[q] for q in queries]
-    many = session.query_many(batch)  # first pass: allocator growth
-    torch.cuda.synchronize()
-    steady = []
-    for _ in range(3):
+
+    def run():
         t0 = time.perf_counter()
-        again = session.query_many(batch)
+        first = mapper.query_genome(queries[0])
         torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
-        if [hit_key(h) for h in again] != [hit_key(h) for h in many]:
-            raise AssertionError("query_many differs between passes")
-    none = mapper.query_genome(unrelated)
-    launches, plain_calls = l2.launches, l2.reference_calls
+        t_first = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        session = Session(mapper)
+        torch.cuda.synchronize()
+        t_park = time.perf_counter() - t0
+        many = session.query_many(batch)  # first pass: allocator growth
+        torch.cuda.synchronize()
+        steady = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = session.query_many(batch)
+            torch.cuda.synchronize()
+            steady.append(time.perf_counter() - t0)
+            if [hit_key(h) for h in again] != [hit_key(h) for h in many]:
+                raise AssertionError("query_many differs between passes")
+        none = mapper.query_genome(unrelated)
+        return first, t_first, session, t_park, many, steady, none
+
+    (first, t_first, session, t_park, many, steady, none), launches = counted(run)
 
     qbp = sum(len(q) for q in queries)
     rates = [qbp / 1e6 / t for t in steady]
@@ -423,10 +615,6 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         raise AssertionError(f"unrelated query gave hits: {none}")
     if hit_key(many[0]) != hit_key(first):
         raise AssertionError(f"query_many[0] {many[0]} != query_genome {first}")
-    if launches <= 0 or plain_calls != 0:
-        raise AssertionError(
-            f"main path ran the kernel {launches} times and the plain version {plain_calls} times"
-        )
 
     # the oracle ingests and indexes the panel again, on its own
     t0 = time.perf_counter()
@@ -445,13 +633,13 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         f"[4] hits of all {N_QUERIES} queries equal the host NumPy engine "
         f"of its own ingest and index (names, matches, fragments, identity ==; host "
         f"ingest, index and queries {t_host:.1f} s); "
-        f"unrelated query -> []; kernel launches {launches}, plain-version runs {plain_calls}"
+        f"unrelated query -> []; kernel launches {dict(launches)}, plain-version runs 0"
     )
-    _, real = capture_l2_operands(session, batch)
-    return mapper, many, launches, real
+    _, real, real_winnow = capture_operands(session, batch)
+    return mapper, many, launches, real, real_winnow
 
 
-def phase_mesh(gpu: str, mapper, queries, want) -> int:
+def phase_mesh(gpu: str, mapper, queries, want):
     """Phase 4's panel on a (2, 2) mesh; returns the kernel launches."""
     import torch
 
@@ -484,12 +672,13 @@ def phase_mesh(gpu: str, mapper, queries, want) -> int:
     log(
         f"[5] (2, 2) mesh on {where}: hits of {N_QUERIES} queries equal phase 4 and the "
         f"host engine; query_many {t_first:.3f} s first, {t_steady:.3f} s steady; "
-        f"budgets {session.budgets}; kernel launches {launches}, plain-version runs 0 ({gpu})"
+        f"budgets {session.budgets}; kernel launches {dict(launches)}, plain-version runs 0 "
+        f"({gpu})"
     )
     return launches
 
 
-def phase_pipeline(gpu: str, mapper, queries) -> int:
+def phase_pipeline(gpu: str, mapper, queries):
     """8 queries in 4 groups under the sync check; returns the kernel
     launches of the checked run."""
     import torch
@@ -522,7 +711,7 @@ def phase_pipeline(gpu: str, mapper, queries) -> int:
         f"[6] query_many of {PIPE_QUERIES} x {REF_LEN} bp at q_capacity={PIPE_Q_CAPACITY} "
         f"({groups} groups of {PIPE_FRAG_CAPACITY} fragments) completed under "
         f"set_sync_debug_mode('error'); hits equal each query alone; "
-        f"kernel launches {launches}, plain-version runs 0"
+        f"kernel launches {dict(launches)}, plain-version runs 0"
     )
 
     qbp = sum(len(q) for q in queries)
@@ -580,7 +769,7 @@ def phase_ingest(gpu: str, refs) -> None:
     )
 
 
-def phase_escalation(gpu: str, mapper, queries, want) -> int:
+def phase_escalation(gpu: str, mapper, queries, want):
     """Phase 4's panel through a `Session` whose budgets are too small:
     the session doubles the blown budgets and runs the batch again, at
     least twice, and gives phase 4's hits.  Returns the kernel launches."""
@@ -616,18 +805,20 @@ def phase_escalation(gpu: str, mapper, queries, want) -> int:
     log(
         f"[9] escalation on the card: phase 4's panel from budgets {ESCALATE_BUDGETS} "
         f"escalated {n} times ({'; '.join(steps)}) to {session.budgets} in {took:.3f} s; "
-        f"hits equal phase 4; kernel launches {launches}, plain-version runs 0 ({gpu})"
+        f"hits equal phase 4; kernel launches {dict(launches)}, plain-version runs 0 ({gpu})"
     )
     return launches
 
 
-def phase_case(gpu: str, mapper, queries, want) -> int:
+def phase_case(gpu: str, mapper, queries, want):
     """Phase 4's batch as uppercase ``bytes``, then as lowercase ``bytes``,
     a mixed-case ``bytearray`` and a mixed-case uint8 ``ndarray`` through
     one `Session`: the session stages the raw bytes and the card
     uppercases them, so every kind gives phase 4's hits.  Each pass's
     `_fragments` and `_stage` milliseconds are printed.  Returns the kernel
     launches."""
+    from collections import Counter
+
     import torch
 
     from bench_torch.spans import HOST_STEPS, HostTimer
@@ -650,7 +841,7 @@ def phase_case(gpu: str, mapper, queries, want) -> int:
     session = Session(mapper)
     session.query_many(kinds["uppercase bytes"])  # allocator growth
     torch.cuda.synchronize()
-    launches = 0
+    launches = Counter()
     for name, batch in kinds.items():
         host = HostTimer(ShardedSession, HOST_STEPS)
         try:
@@ -667,7 +858,7 @@ def phase_case(gpu: str, mapper, queries, want) -> int:
         log(
             f"[11] {name}, {N_QUERIES} x {REF_LEN} bp: hits equal phase 4's uppercase bytes run; "
             f"pass {1e3 * wall:.3f} ms, _fragments {ms['host_fragments']:.3f} ms, "
-            f"_stage {ms['host_stage']:.3f} ms; kernel launches {n} ({gpu})"
+            f"_stage {ms['host_stage']:.3f} ms; kernel launches {dict(n)} ({gpu})"
         )
         launches += n
     return launches
@@ -695,7 +886,8 @@ def phase_ava(gpu: str):
     twice (the first pass timed apart; it also captures the operands of
     its first L2 sweep).  Then the host NumPy engine on g0 and g4, and the
     four-card (1, 4) mesh when there are four cards.  Returns the kernel
-    launches of the steady pass and the captured operands."""
+    launches of the steady pass and the captured operands of the L2
+    kernel and of the winnow."""
     import torch
 
     import pyfastani_tpu_torch as pt
@@ -745,11 +937,11 @@ def phase_ava(gpu: str):
     def first_run():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hits, operands = capture_l2_operands(session, batch)
+        hits, operands, winnow_ops = capture_operands(session, batch)
         torch.cuda.synchronize()
-        return hits, operands, time.perf_counter() - t0
+        return hits, operands, winnow_ops, time.perf_counter() - t0
 
-    (first, operands, t_first), launches_first = counted(first_run)
+    (first, operands, winnow_ops, t_first), launches_first = counted(first_run)
     ran = {k: session.stats[k] - before[k] for k in before}
     peak_first = torch.cuda.max_memory_allocated()
     # the clones of the capture, held on the card from the first pass on
@@ -757,7 +949,7 @@ def phase_ava(gpu: str):
         a.numel() * a.element_size()
         for i, a in enumerate(operands)
         if isinstance(a, torch.Tensor) and i not in STORE_OPERANDS
-    )
+    ) + winnow_ops[0].numel()
 
     def steady_run():
         torch.cuda.reset_peak_memory_stats()
@@ -780,10 +972,11 @@ def phase_ava(gpu: str):
         f"{ran['dispatches']} groups dispatched, {ran['fragments_dispatched']} fragments "
         f"dispatched and {ran['fragments_padded']} padded, escalations "
         f"{ran['budget_escalations']}; budgets {session.budgets}; kernel launches "
-        f"{launches_first} first, {launches} steady, plain-version runs 0; peak device memory "
+        f"{dict(launches_first)} first, {dict(launches)} steady, plain-version runs 0; peak "
+        f"device memory "
         f"(allocated, the parked index included) {peak_first / 2**30:.3f} GiB in the first pass, "
         f"{peak / 2**30:.3f} GiB in the steady one, {held / 2**20:.1f} MiB of each the captured "
-        f"L2 operands"
+        f"L2 and winnow operands"
     )
     log(
         f"[10] {sum(len(h) for h in first)} hits, equal in both passes: every genome hits "
@@ -811,7 +1004,7 @@ def phase_ava(gpu: str):
     del session
     torch.cuda.empty_cache()
     phase_ava_four_cards(gpu, mapper, batch, first)
-    return launches, operands
+    return launches, operands, winnow_ops
 
 
 def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
@@ -851,7 +1044,7 @@ def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
     log(
         f"[10] four-card (1, 4) all-vs-all, index split by genome: hits equal the one-card "
         f"run; shard build and park {t_park:.3f} s, query_many {took:.3f} s = "
-        f"{qbp / 1e6 / took:.2f} Mbp/s; budgets {session.budgets}; kernel launches {launches}, "
+        f"{qbp / 1e6 / took:.2f} Mbp/s; budgets {session.budgets}; kernel launches {dict(launches)}, "
         f"plain-version runs 0 ({gpu})"
     )
 
@@ -959,18 +1152,22 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     phase_kernel(device, gpu)
+    phase_winnow(device, gpu)
     refs, queries, unrelated = genomes()
-    mapper, many, launches, real = phase_query(gpu, refs, queries, unrelated)
+    mapper, many, launches, real, real_winnow = phase_query(gpu, refs, queries, unrelated)
     kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
+    check_winnow("real (phase 4's first group)", real_winnow, gpu)
     launches += phase_mesh(gpu, mapper, queries, many)
     launches += phase_pipeline(gpu, mapper, queries)
     phase_ingest(gpu, refs)
     phase_nccl(gpu, mapper, queries[0], many[0])
     launches += phase_escalation(gpu, mapper, queries, many)
     launches += phase_case(gpu, mapper, queries, many)
-    del mapper, real
-    ava_launches, ava_ops = phase_ava(gpu)
+    del mapper, real, real_winnow
+    ava_launches, ava_ops, ava_winnow = phase_ava(gpu)
+    launches += ava_launches
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
+    winnow = check_winnow("ava (the all-vs-all's first group)", ava_winnow, gpu)
     loaded = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")
@@ -984,9 +1181,18 @@ def main() -> int:
         "route": "cuda",
         "source": "pyfastani_tpu_torch/csrc/l2_chunks.cu",
         "replaces": "pyfastani_tpu/ops/l2_pallas.py:119",
-        "launches": launches + ava_launches,
+        "launches": launches["l2_chunks"],
         "case": "real",
         **{k: v for k, v in kern.items() if k != "device_ms"},
+    }, {
+        # a hand kernel of the port: the JAX package's stage is an XLA program
+        "name": "winnow_fragments",
+        "route": "cuda",
+        "source": "pyfastani_tpu_torch/csrc/winnow_fragments.cu",
+        "replaces": "pyfastani_tpu/ops/fragments.py:33",
+        "launches": launches["winnow_fragments"],
+        "case": "ava",
+        **{k: v for k, v in winnow.items() if k != "device_ms"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``.  The library lands in
+Each of ``csrc/*.cu`` compiles with its own ``nvcc``, all started
+together, and one more links the objects into a shared library with a
+plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/pyfastani_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and flags, so a changed source builds anew and an
 unchanged one loads at once.  A failed build raises with nvcc's output.
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pyfastani_tpu_torch")
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -46,27 +47,36 @@ def _library_path() -> str:
     return os.path.join(_BUILD_DIR, f"libpyfastani_tpu_torch_{digest.hexdigest()[:16]}.so")
 
 
+def _run_all(commands) -> str:
+    """Runs the commands side by side; their joined output, or raises with
+    the output of the first that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}")
+    return "".join(outs)
+
+
 def _compile(lib_path: str) -> None:
     sources = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    tmp = tempfile.mkdtemp(dir=_BUILD_DIR)
     try:
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True,
-            text=True,
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in sources]
+        log = _run_all(
+            [_nvcc(), *_NVCC_FLAGS, "-c", "-o", obj, src] for obj, src in zip(objs, sources)
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        lib_tmp = os.path.join(tmp, "lib.so")
+        log += _run_all([[_nvcc(), *_NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
         with open(lib_path + ".log", "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+            fh.write(log)
+        os.replace(lib_tmp, lib_path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def build_log() -> str:
@@ -94,8 +104,8 @@ def load_library() -> ctypes.CDLL:
         i32, i32, i32, i32,  # cmw, rmax, M, F
         ptr, ptr, ptr, ptr,  # best, first, last, range_bad
     ]
-    lib.l2_chunks_error_string.argtypes = [i32]
-    lib.l2_chunks_error_string.restype = ctypes.c_char_p
+    lib.cuda_error_string.argtypes = [i32]
+    lib.cuda_error_string.restype = ctypes.c_char_p
     lib.l2_chunks_fits_shared.argtypes = [i32, i32, i32]  # device, S, rmax
     lib.l2_chunks_fits_shared.restype = i32
     lib.l2_chunks_scratch_words.argtypes = [i32, i32, i32, i32]  # device, S, rmax, N
@@ -104,4 +114,13 @@ def load_library() -> ctypes.CDLL:
     lib.l2_chunks_launch.restype = i32
     lib.l2_chunks_launch_scratch.argtypes = operands + [ptr, i64, ptr]  # scratch, words, stream
     lib.l2_chunks_launch_scratch.restype = i32
+    # device, length, k, w, F
+    lib.winnow_fragments_scratch_bytes.argtypes = [i32, i64, i32, i32, i32]
+    lib.winnow_fragments_scratch_bytes.restype = i64
+    lib.winnow_fragments_launch.argtypes = [
+        ptr, i64, i32, i64, i32, i32, i32, i32, i64,  # frags, stride, F, length, k, w, protein, kc, wout
+        ptr, ptr, ptr, ptr,  # comp, q, s, ovf
+        ptr, i64, ptr,  # scratch, scratch bytes, stream
+    ]
+    lib.winnow_fragments_launch.restype = i32
     return lib

@@ -648,7 +648,8 @@ cudaError_t launch(int grid, long long smem, cudaStream_t stream, const uint32_t
 
 extern "C" {
 
-const char* l2_chunks_error_string(int err) {
+// The message of a CUDA error code, for every kernel of the library.
+const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

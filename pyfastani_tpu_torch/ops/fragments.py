@@ -3,13 +3,20 @@ winnow of long sequences.
 
 Port of ``pyfastani_tpu/ops/fragments.py``.  `winnow_fragments`
 (``_winnow_fragments_impl``): every query fragment of a dispatch is
-winnowed in one batch (the fragment axis is the leading dimension, where
-the JAX package ``vmap``s), then each fragment's recorded minimizer hashes
-are sorted and compacted to its sketch -- the sorted unique hashes,
-``UMAX``-padded.  `winnow_long_sequence`: a whole contig is winnowed on
-the device in fixed-size chunks of windows with the boundary state
-carried between them, in the 1-D form (the JAX package's ``(R, 128)``
-layout is a TPU tiling workaround).  All outputs are integers, so the
+winnowed, then each fragment's recorded minimizer hashes are sorted and
+compacted to its sketch -- the sorted unique hashes, ``UMAX``-padded.  For
+CUDA tensors it launches the hand-written CUDA kernel
+(``csrc/winnow_fragments.cu``: one block a fragment, a fragment too long
+for shared memory in its scratch variant), for CPU tensors it takes the
+plain version, `winnow_fragments_reference`, which winnows the batch with
+the fragment axis as the leading dimension (where the JAX package
+``vmap``s); any other device raises.  ``launches`` counts kernel launches
+and ``reference_calls`` runs of the plain version.
+
+`winnow_long_sequence`: a whole contig is winnowed on the device in
+fixed-size chunks of windows with the boundary state carried between
+them, in the 1-D form (the JAX package's ``(R, 128)`` layout is a TPU
+tiling workaround).  All outputs are integers, so the
 port and the JAX package agree bitwise.
 """
 
@@ -18,11 +25,14 @@ from __future__ import annotations
 import torch
 
 from .._common import UMAX
-from .winnow import nucl_canonical, prot_hashes, winnow, winnow_chunk
+from .winnow import _complement_lut, nucl_canonical, prot_hashes, winnow, winnow_chunk
 
-__all__ = ["winnow_fragments", "winnow_long_sequence"]
+__all__ = ["winnow_fragments", "winnow_fragments_reference", "winnow_long_sequence"]
 
 _CHUNK_WINDOWS = 1 << 21  # windows winnowed per chunk
+
+launches = 0
+reference_calls = 0
 
 
 def winnow_fragments(
@@ -41,7 +51,68 @@ def winnow_fragments(
         ``(rec_ovf, q_sorted, s)``: a 0-d bool flagging a fragment with
         more than ``kc`` sketch hashes, the ``(F, min(kc, P))`` int64
         sorted sketches (``UMAX`` pad) and the ``(F,)`` int32 sketch sizes.
+
+    CUDA tensors launch the kernel, CPU tensors take
+    `winnow_fragments_reference`, anything else raises.  Neither falls
+    back to the other.
     """
+    global launches
+    if frags.dim() != 2 or frags.dtype != torch.uint8:
+        raise TypeError("frags must be a (F, length + pad) uint8 tensor")
+    if frags.shape[1] < length:
+        raise ValueError(f"frags rows hold {frags.shape[1]} bytes, fewer than length {length}")
+    dev = frags.device
+    if dev.type == "cpu":
+        return winnow_fragments_reference(frags, k, w, length, protein, kc)
+    if dev.type != "cuda":
+        raise ValueError(f"winnow_fragments runs on cuda or cpu tensors, got {dev}")
+
+    import ctypes
+
+    from .._build import load_library
+
+    lib = load_library()
+    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    F = frags.shape[0]
+    wout = max(0, min(kc, length - k - w + 2))  # the reference's min(kc, P) columns
+    q_sorted = torch.empty((F, wout), dtype=torch.int64, device=dev)
+    s = torch.empty(F, dtype=torch.int32, device=dev)
+    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    if F == 0:
+        return ovf[0] != 0, q_sorted, s
+    if frags.stride(1) != 1:
+        frags = frags.contiguous()
+    comp = _complement_lut(dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        # a fragment too long for shared memory takes the scratch variant,
+        # whose global scratch comes from the caching allocator
+        need = lib.winnow_fragments_scratch_bytes(dev.index, length, k, w, F)
+        if need < 0:
+            raise RuntimeError("winnow_fragments: the CUDA device could not be queried")
+        scratch = torch.empty(need, dtype=torch.uint8, device=dev) if need else None
+        err = lib.winnow_fragments_launch(
+            ctypes.c_void_p(frags.data_ptr()), frags.stride(0), F, length, k, w, int(protein),
+            kc, wout, ctypes.c_void_p(comp.data_ptr()), ctypes.c_void_p(q_sorted.data_ptr()),
+            ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(ovf.data_ptr()),
+            ctypes.c_void_p(None if scratch is None else scratch.data_ptr()), need, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"winnow_fragments kernel launch failed: {lib.cuda_error_string(err).decode()}"
+        )
+    launches += 1
+    return ovf[0] != 0, q_sorted, s
+
+
+def winnow_fragments_reference(
+    frags: torch.Tensor, k: int, w: int, length: int, protein: bool, kc: int
+):
+    """The plain torch version of `winnow_fragments` (same arguments and
+    result): the batch winnowed as ``(F, P)`` tensors, then sorted twice,
+    around a first-occurrence mask."""
+    global reference_calls
+    reference_calls += 1
     n_pos = length - k + 1
     hashes = prot_hashes if protein else nucl_canonical
     canon, valid = hashes(frags, length, k, n_pos)

@@ -199,7 +199,7 @@ def l2_chunks(
             )
     if err != 0:
         raise RuntimeError(
-            f"l2_chunks kernel launch failed: {lib.l2_chunks_error_string(err).decode()}"
+            f"l2_chunks kernel launch failed: {lib.cuda_error_string(err).decode()}"
         )
     launches += 1
     return best, first, last, range_bad[0]

@@ -18,7 +18,7 @@ import pyfastani_tpu_torch as pt
 from pyfastani_tpu.models._engine_np import winnow_sequence
 from pyfastani_tpu.models._params import Parameters
 from pyfastani_tpu_torch.models._engine_torch import winnow_sequence_device
-from pyfastani_tpu_torch.ops import l2
+from pyfastani_tpu_torch.ops import fragments, l2
 from pyfastani_tpu_torch.parallel.mesh import make_mesh
 from pyfastani_tpu_torch.parallel.sharded import ShardedSession
 from pyfastani_tpu_torch.session import Session
@@ -64,12 +64,14 @@ def test_pipelined_session_never_waits_inside_a_pass(panel):
     batch = [[q] for q in queries]
     warm = session.query_many(batch)
     l2.launches, l2.reference_calls = 0, 0
+    fragments.launches, fragments.reference_calls = 0, 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         steady = session.query_many(batch)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert l2.launches > 0 and l2.reference_calls == 0
+    assert fragments.launches > 0 and fragments.reference_calls == 0
     assert [_key(h) for h in steady] == [_key(h) for h in warm] == [_key(h) for h in host]
     assert all(host)
 

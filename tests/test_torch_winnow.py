@@ -14,11 +14,12 @@ import jax.numpy as jnp
 from pyfastani_tpu.ops import murmur3 as jmurmur
 from pyfastani_tpu.ops.fragments import _winnow_fragments_impl
 from pyfastani_tpu_torch._common import hashes_to_numpy
-from pyfastani_tpu_torch.ops.fragments import winnow_fragments
+from pyfastani_tpu_torch.ops.fragments import winnow_fragments, winnow_fragments_reference
 from pyfastani_tpu_torch.ops.murmur3 import kmer_hashes
 from pyfastani_tpu_torch.ops.winnow import nucl_canonical, prot_hashes, winnow
 
 from .oracle import add_minimizers_oracle
+from chip_smoke import WINNOW_CASES, winnow_case
 
 _NUCL = np.frombuffer(b"ACGTN", dtype=np.uint8)
 _PROT = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", dtype=np.uint8)
@@ -52,6 +53,21 @@ def test_winnow_fragments_match_jax(protein, k, w, kc):
     j_ovf, _, j_q, j_s = _winnow_fragments_impl(jnp.asarray(frags), k, w, length, protein, kc)
     t_ovf, t_q, t_s = winnow_fragments(torch.from_numpy(frags), k, w, length, protein, kc)
     assert bool(t_ovf) == bool(j_ovf)
+    np.testing.assert_array_equal(hashes_to_numpy(t_q), np.asarray(j_q))
+    np.testing.assert_array_equal(t_s.numpy(), np.asarray(j_s))
+
+
+@pytest.mark.parametrize("name", WINNOW_CASES)
+def test_winnow_fragments_reference_matches_jax_on_kernel_cases(name):
+    """The plain version of the CUDA kernel on the kernel's edge cases
+    (``chip_smoke.WINNOW_CASES``), bitwise."""
+    frags, k, w, length, protein, kc = winnow_case(name)
+    j_ovf, _, j_q, j_s = _winnow_fragments_impl(jnp.asarray(frags), k, w, length, protein, kc)
+    t_ovf, t_q, t_s = winnow_fragments_reference(
+        torch.from_numpy(frags), k, w, length, protein, kc
+    )
+    assert bool(t_ovf) == bool(j_ovf) == (name == "overflow")
+    assert t_q.shape == j_q.shape and t_s.shape == j_s.shape
     np.testing.assert_array_equal(hashes_to_numpy(t_q), np.asarray(j_q))
     np.testing.assert_array_equal(t_s.numpy(), np.asarray(j_s))
 
