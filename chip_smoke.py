@@ -75,14 +75,30 @@ result:
     3000 bytes, k 16, w 24, pad 4); and, captured from the path, ``real``
     (phase 4's first group) and ``ava`` (the all-vs-all's first group).
     ``main``, ``real`` and ``ava`` with the kernel's and the plain
-    version's times, the kernel alone in device time and its bound.
+    version's times, the kernel alone in device time and its bound;
+13. (run after phase 12) the L1 candidate kernels
+    (``csrc/l1_candidates.cu``: probe, then one block a fragment) against
+    their plain torch version under the stage's exactness contract
+    (`_l1_err`: both overflow flags always, ``iv_valid`` while the
+    interval flag is clear, the bounds where ``iv_valid`` holds), on CUDA
+    tensors: the synthetic cases of `L1_CASES` (``main`` at the
+    all-vs-all's shape, minimum hits past 4 with a frequency threshold,
+    the hit axis cut at T, an interval overflow, fragments and a batch
+    without hits, sketch sizes 0 and past S, one fragment, and a fragment
+    past shared memory: the scratch variant), an empty index (U = M = 0,
+    where the plain version cannot run: nothing found); and, captured
+    from the path, ``real`` (phase 4's first group) and ``ava`` (the
+    all-vs-all's first group).  ``main``, ``trunc``, ``scratch``,
+    ``real`` and ``ava`` with the kernels' and the plain version's times,
+    the kernels alone in device time and their bound (`l1_work`).
 
 Phases 4 to 6, 9, 10 and 11 each reset the kernels' launch counters
 before their run and fail unless every kernel ran and no plain version
 did.  The last lines are the card, a JSON object with one entry per
 kernel (launches summed over phases 4 to 6, 9, 10's steady pass and 11;
 times and bound at the case its ``case`` key names: ``real`` for the L2
-kernel, ``ava`` for the winnow), and ``{"ok": true, "device": {...}}``.
+kernel, ``ava`` for the winnow and L1), and ``{"ok": true, "device":
+{...}}``.
 Takes no arguments.  Imports neither JAX nor anything of
 ``pyfastani_tpu``, and fails if either was loaded.
 """
@@ -149,6 +165,13 @@ WINNOW_SCRATCH_LENGTH = 30_000
 WINNOW_CASES = (
     "nucl_edges", "all_bytes", "overflow", "k15", "k18", "k5", "protein_w1",
     "one_fragment", "wide_window", "no_window", "scratch",
+)
+# phase 13: the L1 kernels' synthetic cases (`l1_case`); a fragment with
+# this many hits passes the card's opt-in shared memory (~57K int32 slots)
+L1_SCRATCH_HITS = 75_000
+L1_CASES = (
+    "main", "m_high", "trunc", "ovf_iv", "empty", "all_empty", "s_zero", "one_fragment",
+    "scratch",
 )
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 _NUCL = np.frombuffer(b"ACGTN", np.uint8)
@@ -397,6 +420,67 @@ def winnow_work(args, s_sizes) -> dict:
     )
 
 
+def _ceil_log2(x):
+    import torch
+
+    return torch.ceil(torch.log2(x.clamp(min=1)))
+
+
+def l1_hits(args):
+    """``(n, probe_depth)``: each fragment's hits on the flat axis of
+    ``l1_candidates(*args)`` (cut at T), and the binary-search steps each
+    live probe's bucket needs, by torch ops on the operands' device."""
+    import torch
+
+    from pyfastani_tpu_torch._common import i32_to_hash
+
+    q, s, uniq, _, row_len, _, thr, _, bucket, hmax, _, _, steps, _ = args
+    F, S = q.shape
+    live = torch.arange(S, device=q.device)[None, :] < s[:, None]
+    U = uniq.shape[0]
+    counts = torch.zeros(F, dtype=torch.int64, device=q.device)
+    if U:
+        h = i32_to_hash(uniq)
+        r = torch.searchsorted(h, q)
+        rc = r.clamp(max=U - 1)
+        found = live & (r < U) & (h[rc] == q)
+        lens = row_len[rc].long()
+        counts = torch.where(found & (lens < thr), lens, 0).sum(dim=1)
+    start = torch.cumsum(counts, 0) - counts
+    n = (F * hmax - start).clamp(min=0).minimum(counts)
+    bits = int(bucket.shape[0] - 1).bit_length() - 1
+    b = (q[live] >> (32 - bits)).long()
+    size = (bucket[b + 1] - bucket[b]).double()
+    depth = torch.ceil(torch.log2(size + 1)).clamp(max=steps)
+    return n, depth
+
+
+def l1_work(args) -> dict:
+    """The least work of one ``l1_candidates(*args)`` call, for its
+    roofline bound, from this call's data.  Bytes: each live probe's
+    hash (8), its bucket's two bounds (8), the 4-byte row hashes its
+    binary search reads, and its row's length and start (8); each hit's
+    posting (4); the sketch sizes; the outputs written once (two int32
+    and one bool a column, two flags).  int32 operations: 4 a search
+    step and 6 more a probe (the row test, the scan of lengths); a
+    comparison sort of each fragment's n hits (``n ceil(log2 n)``) and 6
+    a hit (its slot's probe, the candidate test, the merge scan)."""
+    n, depth = l1_hits(args)
+    F = args[0].shape[0]
+    ivmax = args[10]
+    live = int(depth.numel())
+    nd = n.double()
+    sort = int((nd * _ceil_log2(nd)).sum())
+    nbytes = live * 24 + 4 * int(depth.sum()) + 4 * int(n.sum()) + 4 * F + F * ivmax * 9 + 2
+    ops = 4 * int(depth.sum()) + 6 * live + sort + 6 * int(n.sum())
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    return dict(
+        bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
 def _winnow_err(got, want) -> int:
     """The largest absolute difference of sketch and sizes (0 when equal);
     raises when the flags, shapes or types differ."""
@@ -469,41 +553,251 @@ def phase_winnow(device, gpu: str) -> None:
                  (torch.from_numpy(main).to(device), 16, 24, 3000, False, 512), gpu)
 
 
-# operands of `l2_chunks` that are the session's parked store planes
-# (mini_hash, mini_wpos, mini_prev): no pass writes them
+def _l1_table(S: int, ms=(1, 2, 3, 4), steps=(50, 150, 250)) -> np.ndarray:
+    """A minimum-hits table by sketch size: ``ms[i]`` from size
+    ``steps[i - 1]`` on (the shape of ``stats.min_hits_relaxed_table``)."""
+    return np.asarray(ms, np.int32)[np.searchsorted(np.asarray(steps), np.arange(S + 1), "right")]
+
+
+def l1_case(name: str):
+    """The operands of one synthetic `l1_candidates` call of `L1_CASES`,
+    as numpy arrays in the wrapper's order (``uniq_hash`` as uint32), made
+    from a seed: a position-ordered minimizer store over contigs laid out
+    ``l + 8`` apart, hashes drawn from a pool twice its size (most rows
+    of 1 posting), its posting index and hash-prefix table, and fragments
+    whose sketches are 90% of the hashes of an ``l``-long window of the
+    store plus 5% hashes the index lacks.  ``main`` is the all-vs-all's
+    shape (4096 fragments, S 384, hmax 1152); the others are small and
+    each drives one edge of the kernels: minimum hits past 4 and a
+    frequency threshold (``m_high``), the hit axis cut at T (``trunc``),
+    more intervals than ``ivmax`` (``ovf_iv``), fragments without hits
+    (``empty``) or a batch without any (``all_empty``), sketches of size
+    0 and past S (``s_zero``), ``F = 1`` (``one_fragment``), and a
+    fragment of `L1_SCRATCH_HITS` hits (``scratch``)."""
+    rng = np.random.default_rng(sum(name.encode()) + 13)
+    l, S, F, hmax, ivmax, thr = 3000, 384, 48, 1024, 32, 2**31 - 1
+    n_contigs, contig_len = 8, 500_000
+    table = _l1_table(S)
+    if name == "main":
+        F, hmax, n_contigs, contig_len = 4096, 1152, 8, 2_000_000
+    elif name == "m_high":
+        table, thr = _l1_table(S, (1, 5, 6, 8)), 4
+    elif name == "ovf_iv":
+        table, ivmax = _l1_table(S, (1,), ()), 1
+    elif name == "one_fragment":
+        F = 1
+    elif name == "scratch":
+        F, hmax = 4, 24_000
+    # the store: a minimizer every 1-23 bases, contigs l + 8 apart
+    gap = l + 8
+    per = contig_len // 12
+    wpos = np.cumsum(rng.integers(1, 24, size=(n_contigs, per)), axis=1)
+    wpos = np.minimum(wpos, contig_len - 1)
+    gpos = (wpos + np.arange(n_contigs)[:, None] * (contig_len + gap)).reshape(-1)
+    n_pool = 2 * gpos.shape[0]
+    pool = np.unique(rng.integers(0, 2**32 - 1, size=n_pool, dtype=np.uint64)).astype(np.uint32)
+    hid = rng.integers(0, pool.shape[0], size=gpos.shape[0])
+    hashes = pool[hid]
+    repeats = np.zeros(0, np.uint32)
+    if name == "scratch":  # three hashes of long rows, tandem repeats
+        repeats = pool[:3]
+        per_row = L1_SCRATCH_HITS // 3 + 1
+        rep_pos = np.arange(per_row) * 37 + 1000
+        gpos = np.concatenate([gpos] + [rep_pos + j for j in range(3)])
+        hashes = np.concatenate([hashes] + [np.full(per_row, h, np.uint32) for h in repeats])
+    order = np.lexsort((gpos, hashes))
+    post_gpos = gpos[order].astype(np.int32)
+    uniq, row_start, row_len = np.unique(hashes[order], return_index=True, return_counts=True)
+    bits = 10
+    edges = np.arange((1 << bits) + 1, dtype=np.uint64) << np.uint64(32 - bits)
+    bucket = np.searchsorted(uniq.astype(np.uint64), edges).astype(np.int32)
+    deepest = int(np.diff(bucket).max(initial=0))
+    steps = max(1, int(np.ceil(np.log2(deepest + 1))))
+
+    # the fragments: a window of one contig, 90% of its hashes, 5% absent
+    absent = rng.integers(0, 2**32 - 1, size=4 * S * F, dtype=np.uint64).astype(np.uint32)
+    absent = absent[~np.isin(absent, uniq)]
+    q = np.full((F, S), 0xFFFFFFFF, np.int64)
+    s = np.zeros(F, np.int32)
+    for f in range(F):
+        if name == "all_empty" or (name == "empty" and f % 3 == 1):
+            sk = absent[f * 200 : f * 200 + 200]
+        elif name == "s_zero" and f % 4 == 0:
+            sk = absent[:0]
+        else:
+            c = rng.integers(0, n_contigs)
+            p = rng.integers(0, contig_len - l)
+            row = wpos[c]
+            win = hashes[c * per + np.nonzero((row >= p) & (row < p + l))[0]]
+            win = win[rng.random(win.shape[0]) < 0.9]
+            extra = absent[f * 200 : f * 200 + max(1, win.shape[0] // 20)]
+            sk = np.concatenate([win, extra])
+            if name == "s_zero" and f % 4 == 1:  # past S: the sketch is cut, s is not
+                sk = np.concatenate([sk, absent[-2 * S :]])
+            if name == "scratch" and f == 0:
+                sk = np.concatenate([sk, repeats])
+        sk = np.unique(sk.astype(np.int64))
+        s[f] = sk.shape[0]
+        q[f, : min(S, s[f])] = sk[:S]
+    m_values = tuple(sorted({int(max(v, 1)) for v in table[: min(S, table.shape[0] - 1) + 1]}))
+    case = (q, s, uniq, row_start.astype(np.int32), row_len.astype(np.int32), post_gpos,
+            thr, table, bucket, hmax, ivmax, l, steps, m_values)
+    if name == "trunc":  # about half the hits fit, and every interval
+        total = int(l1_hits(l1_torch_args(case, "cpu"))[0].sum())
+        case = case[:9] + (max(1, total // (2 * F)), 256) + case[11:]
+    return case
+
+
+def l1_torch_args(case, device):
+    """`l1_case` operands as the wrapper takes them, on ``device``."""
+    import torch
+
+    from pyfastani_tpu_torch._common import bits_to_i32
+
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    q, s, uniq, rs, rl, post, thr, table, bucket, *static = case
+    return (put(q), put(s), put(bits_to_i32(uniq)), put(rs), put(rl), put(post), thr,
+            put(table), put(bucket), *static)
+
+
+def _l1_err(got, want) -> int:
+    """The exactness contract of the L1 kernels against the plain version:
+    raises unless shapes, types and both flags agree and, with the
+    interval flag clear, ``iv_valid`` too; returns the largest absolute
+    difference of the bounds where ``iv_valid`` holds (0 when the
+    interval flag is set: the caller reruns that pass, the bounds are
+    unconstrained)."""
+    for name, g, w in zip(("iv_g0", "iv_g1", "iv_valid", "ovf_hits", "ovf_iv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"l1_candidates {name}: {g.shape} {g.dtype} != {w.shape} {w.dtype}")
+    for name, g, w in zip(("ovf_hits", "ovf_iv"), got[3:], want[3:]):
+        if bool(g) != bool(w):
+            raise AssertionError(f"l1_candidates {name} {bool(g)} != plain {bool(w)}")
+    if bool(want[4]):
+        return 0
+    if not bool((got[2] == want[2]).all()):
+        raise AssertionError("l1_candidates iv_valid differs from the plain version")
+    valid = want[2]
+    if not bool(valid.any()):
+        return 0
+    return max(int((g[valid].long() - w[valid].long()).abs().max()) for g, w in zip(got[:2], want[:2]))
+
+
+def check_l1(name: str, args, gpu: str, timed: bool = True) -> dict:
+    """The L1 kernels against their plain version on ``args`` (CUDA
+    tensors) under `_l1_err`'s contract; with ``timed``, both times
+    (plain, kernels, kernels, plain), the kernels alone in device time
+    and the bound."""
+    import torch
+
+    from pyfastani_tpu_torch._build import load_library
+    from pyfastani_tpu_torch.ops import l1
+
+    got = l1.l1_candidates(*args)
+    want = l1.l1_candidates_reference(*args)
+    torch.cuda.synchronize()
+    err = _l1_err(got, want)
+    if err != 0:
+        raise AssertionError(f"l1_candidates kernels differ from the plain version ({name}): {err}")
+    q, hmax, ivmax = args[0], args[9], args[10]
+    n, _ = l1_hits(args)
+    cap = load_library().l1_intervals_capacity(q.device.index, hmax)
+    head = (f"[13] l1_candidates {name}: F={q.shape[0]}, S={q.shape[1]}, hmax={hmax}, "
+            f"ivmax={ivmax}, m_values={args[13]}: {int(n.sum())} hits (at most "
+            f"{int(n.max()) if n.numel() else 0} a fragment, {int((n > cap).sum())} fragment(s) "
+            f"past the {cap} shared slots), {int(want[2].sum())} intervals, overflow "
+            f"hits/intervals {bool(want[3])}/{bool(want[4])}: equal under the contract")
+    if not timed:
+        log(f"{head} ({gpu})")
+        return dict(max_abs_err=err, scratch_fragments=int((n > cap).sum()))
+    plain_a = time_ms(l1.l1_candidates_reference, args)
+    kern_a = time_ms(l1.l1_candidates, args)
+    kern_b = time_ms(l1.l1_candidates, args)
+    plain_b = time_ms(l1.l1_candidates_reference, args)
+    alone = kernel_device_ms(l1.l1_candidates, args, "l1_")
+    work = l1_work(args)
+    log(
+        f"{head}; kernels {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
+        f"call, kernels alone {alone:.4f} ms of device time; bound {work['bound_ms']:.4f} ms by "
+        f"{work['bound_by']} ({work['bytes']} B = {work['bytes_ms']:.4f} ms, {work['ops']} int32 "
+        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
+    )
+    return dict(
+        max_abs_err=err, ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+        device_ms=alone, bound_ms=work["bound_ms"], bound_by=work["bound_by"], library_ms=None,
+        scratch_fragments=int((n > cap).sum()),
+    )
+
+
+def l1_no_index(device):
+    """`l1_case` ``one_fragment`` against an empty index (U = M = 0), where
+    the plain version cannot run: the kernels find nothing."""
+    case = list(l1_case("one_fragment"))
+    for i in (2, 3, 4, 5):
+        case[i] = case[i][:0]
+    case[8] = np.zeros_like(case[8])
+    return l1_torch_args(case, device)
+
+
+def phase_l1(device, gpu: str) -> None:
+    """Phase 13's synthetic cases: every case of `L1_CASES` (``main``,
+    ``trunc`` and ``scratch`` timed), then an empty index."""
+    import torch
+
+    from pyfastani_tpu_torch.ops import l1
+
+    for name in L1_CASES:
+        res = check_l1(name, l1_torch_args(l1_case(name), device), gpu,
+                       timed=name in ("main", "trunc", "scratch"))
+        if (res["scratch_fragments"] > 0) != (name == "scratch"):
+            raise AssertionError(f"l1 case {name}: {res['scratch_fragments']} scratch fragments")
+    iv_g0, iv_g1, iv_valid, ovf_hits, ovf_iv = l1.l1_candidates(*l1_no_index(device))
+    torch.cuda.synchronize()
+    if bool(iv_valid.any()) or bool(ovf_hits) or bool(ovf_iv) or bool(iv_g0.any()) or bool(iv_g1.any()):
+        raise AssertionError("l1_candidates found intervals in an empty index")
+    log(f"[13] l1_candidates on an empty index (U = M = 0): no interval, no flag ({gpu})")
+
+
+# operands of `l2_chunks` and of `l1_candidates` that are the session's
+# parked index planes (mini_hash, mini_wpos, mini_prev; uniq_hash,
+# row_start, row_len, post_gpos, hash_bucket): no pass writes them
 STORE_OPERANDS = (2, 3, 4)
+L1_STORE_OPERANDS = (2, 3, 4, 5, 8)
 
 
-def capture_operands(session, batch):
-    """``(hits, l2_operands, winnow_operands)``: one
-    ``session.query_many(batch)`` and the operands of its first
-    `l2_chunks` and first `winnow_fragments` call, cloned but for the
-    store planes, which are kept by reference."""
+def capture_operands(run):
+    """``(result, l2_operands, winnow_operands, l1_operands)``: ``run()``
+    (a query through the session) and the operands of its first
+    `l2_chunks`, `winnow_fragments` and `l1_candidates` call, cloned but
+    for the index planes, which are kept by reference."""
     import torch
 
     from pyfastani_tpu_torch import session as session_module
 
     captured = {}
-    originals = {name: getattr(session_module, name) for name in ("l2_chunks", "winnow_fragments")}
+    keep = {"l2_chunks": STORE_OPERANDS, "winnow_fragments": (), "l1_candidates": L1_STORE_OPERANDS}
+    originals = {name: getattr(session_module, name) for name in keep}
 
-    def capturing(name, keep):
+    def capturing(name):
         def capture(*args):
             if name not in captured:
                 captured[name] = tuple(
-                    a.clone() if isinstance(a, torch.Tensor) and i not in keep else a
+                    a.clone() if isinstance(a, torch.Tensor) and i not in keep[name] else a
                     for i, a in enumerate(args)
                 )
             return originals[name](*args)
         return capture
 
-    session_module.l2_chunks = capturing("l2_chunks", STORE_OPERANDS)
-    session_module.winnow_fragments = capturing("winnow_fragments", ())
+    for name in keep:
+        setattr(session_module, name, capturing(name))
     try:
-        hits = session.query_many(batch)
+        result = run()
     finally:
         for name, fn in originals.items():
             setattr(session_module, name, fn)
-    return hits, captured["l2_chunks"], captured["winnow_fragments"]
+    return result, captured["l2_chunks"], captured["winnow_fragments"], captured["l1_candidates"]
 
 
 def ava_genomes(n_genomes: int = AVA_GENOMES, lengths=AVA_LENGTHS):
@@ -538,9 +832,9 @@ def counted(run):
     kernel name; fails unless every kernel ran and no plain version did."""
     from collections import Counter
 
-    from pyfastani_tpu_torch.ops import fragments, l2
+    from pyfastani_tpu_torch.ops import fragments, l1, l2
 
-    wrappers = {"l2_chunks": l2, "winnow_fragments": fragments}
+    wrappers = {"l2_chunks": l2, "winnow_fragments": fragments, "l1_candidates": l1}
     for mod in wrappers.values():
         mod.launches = 0
         mod.reference_calls = 0
@@ -635,8 +929,8 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         f"ingest, index and queries {t_host:.1f} s); "
         f"unrelated query -> []; kernel launches {dict(launches)}, plain-version runs 0"
     )
-    _, real, real_winnow = capture_operands(session, batch)
-    return mapper, many, launches, real, real_winnow
+    _, real, real_winnow, real_l1 = capture_operands(lambda: session.query_many(batch))
+    return mapper, many, launches, real, real_winnow, real_l1
 
 
 def phase_mesh(gpu: str, mapper, queries, want):
@@ -937,11 +1231,11 @@ def phase_ava(gpu: str):
     def first_run():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hits, operands, winnow_ops = capture_operands(session, batch)
+        hits, operands, winnow_ops, l1_ops = capture_operands(lambda: session.query_many(batch))
         torch.cuda.synchronize()
-        return hits, operands, winnow_ops, time.perf_counter() - t0
+        return hits, operands, winnow_ops, l1_ops, time.perf_counter() - t0
 
-    (first, operands, winnow_ops, t_first), launches_first = counted(first_run)
+    (first, operands, winnow_ops, l1_ops, t_first), launches_first = counted(first_run)
     ran = {k: session.stats[k] - before[k] for k in before}
     peak_first = torch.cuda.max_memory_allocated()
     # the clones of the capture, held on the card from the first pass on
@@ -949,7 +1243,11 @@ def phase_ava(gpu: str):
         a.numel() * a.element_size()
         for i, a in enumerate(operands)
         if isinstance(a, torch.Tensor) and i not in STORE_OPERANDS
-    ) + winnow_ops[0].numel()
+    ) + winnow_ops[0].numel() + sum(
+        a.numel() * a.element_size()
+        for i, a in enumerate(l1_ops)
+        if isinstance(a, torch.Tensor) and i not in L1_STORE_OPERANDS
+    )
 
     def steady_run():
         torch.cuda.reset_peak_memory_stats()
@@ -976,7 +1274,7 @@ def phase_ava(gpu: str):
         f"device memory "
         f"(allocated, the parked index included) {peak_first / 2**30:.3f} GiB in the first pass, "
         f"{peak / 2**30:.3f} GiB in the steady one, {held / 2**20:.1f} MiB of each the captured "
-        f"L2 and winnow operands"
+        f"L2, winnow and L1 operands"
     )
     log(
         f"[10] {sum(len(h) for h in first)} hits, equal in both passes: every genome hits "
@@ -1004,7 +1302,7 @@ def phase_ava(gpu: str):
     del session
     torch.cuda.empty_cache()
     phase_ava_four_cards(gpu, mapper, batch, first)
-    return launches, operands, winnow_ops
+    return launches, operands, winnow_ops, l1_ops
 
 
 def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
@@ -1153,21 +1451,24 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_kernel(device, gpu)
     phase_winnow(device, gpu)
+    phase_l1(device, gpu)
     refs, queries, unrelated = genomes()
-    mapper, many, launches, real, real_winnow = phase_query(gpu, refs, queries, unrelated)
+    mapper, many, launches, real, real_winnow, real_l1 = phase_query(gpu, refs, queries, unrelated)
     kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
     check_winnow("real (phase 4's first group)", real_winnow, gpu)
+    check_l1("real (phase 4's first group)", real_l1, gpu)
     launches += phase_mesh(gpu, mapper, queries, many)
     launches += phase_pipeline(gpu, mapper, queries)
     phase_ingest(gpu, refs)
     phase_nccl(gpu, mapper, queries[0], many[0])
     launches += phase_escalation(gpu, mapper, queries, many)
     launches += phase_case(gpu, mapper, queries, many)
-    del mapper, real, real_winnow
-    ava_launches, ava_ops, ava_winnow = phase_ava(gpu)
+    del mapper, real, real_winnow, real_l1
+    ava_launches, ava_ops, ava_winnow, ava_l1 = phase_ava(gpu)
     launches += ava_launches
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
     winnow = check_winnow("ava (the all-vs-all's first group)", ava_winnow, gpu)
+    cand = check_l1("ava (the all-vs-all's first group)", ava_l1, gpu)
     loaded = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")
@@ -1193,6 +1494,16 @@ def main() -> int:
         "launches": launches["winnow_fragments"],
         "case": "ava",
         **{k: v for k, v in winnow.items() if k != "device_ms"},
+    }, {
+        # a hand kernel of the port (two kernels, one wrapper): the JAX
+        # package's stage is an XLA program
+        "name": "l1_candidates",
+        "route": "cuda",
+        "source": "pyfastani_tpu_torch/csrc/l1_candidates.cu",
+        "replaces": "pyfastani_tpu/ops/l1.py:110",
+        "launches": launches["l1_candidates"],
+        "case": "ava",
+        **{k: v for k, v in cand.items() if k not in ("device_ms", "scratch_fragments")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -123,4 +123,20 @@ def load_library() -> ctypes.CDLL:
         ptr, i64, ptr,  # scratch, scratch bytes, stream
     ]
     lib.winnow_fragments_launch.restype = i32
+    lib.l1_probe_launch.argtypes = [
+        ptr, i64, ptr, i32, i32,  # q, its row stride, s_sizes, F, S
+        ptr, ptr, ptr, i64,  # uniq_hash, row_start, row_len, U
+        ptr, i32, i32, i64,  # hash_bucket, bits, steps, freq threshold
+        ptr, ptr, ptr, ptr,  # probe_len, probe_start, counts, stream
+    ]
+    lib.l1_probe_launch.restype = i32
+    lib.l1_intervals_capacity.argtypes = [i32, i64]  # device, hmax
+    lib.l1_intervals_capacity.restype = i64
+    lib.l1_intervals_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32,  # probe_len, probe_start, counts, ends, F, S
+        ptr, ptr, i32, ptr, i64,  # s_sizes, min_hits_table, its length, post_gpos, M
+        i64, i32, i32, i64,  # T, ivmax, l, shared slots
+        ptr, ptr, ptr, ptr, ptr, ptr,  # iv_g0, iv_g1, iv_valid, flags, scratch, stream
+    ]
+    lib.l1_intervals_launch.restype = i32
     return lib

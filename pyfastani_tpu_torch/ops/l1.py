@@ -10,20 +10,45 @@ and its static budgets are the JAX package's (see its module docstring):
 
 Hits carry one coordinate, the global position (``post_gpos``); contigs
 are laid out with at least ``l + 8`` of dead space between them, so "same
-contig and within ``l``" is a single difference of global positions.  The
-TPU-shaped pieces become their plain torch counterparts: the 2-level
-scans are ``torch.cumsum``/``torch.cummax``, ``.at[].max`` is
+contig and within ``l``" is a single difference of global positions.
+
+`l1_candidates` launches two hand-written CUDA kernels for CUDA tensors
+(``csrc/l1_candidates.cu``: the probe, then one block a fragment for its
+hits, sort, candidates and merged intervals, with a fragment past the
+block's shared memory in a global scratch slice), and takes the plain
+version, `l1_candidates_reference`, for CPU tensors; any other device
+raises.  ``launches`` counts kernel-route calls (one a call of the two
+kernels) and ``reference_calls`` runs of the plain version.  In the plain version the TPU-shaped pieces
+become their plain torch counterparts: the 2-level scans are
+``torch.cumsum``/``torch.cummax``, ``.at[].max`` is
 ``scatter_reduce_(..., "amax")`` and the two-key ``lax.sort`` is one sort
 of the int64 key ``frag << 32 | gpos``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .._common import GBIG, i32_to_hash
 
-__all__ = ["l1_candidates"]
+__all__ = ["l1_candidates", "l1_candidates_reference"]
+
+launches = 0
+reference_calls = 0
+
+
+@functools.cache
+def _shared_slots(device: int, hmax: int) -> int:
+    """Hit slots of the intervals kernel's shared buffer on ``device`` at
+    budget ``hmax`` (``l1_intervals_capacity``), asked once."""
+    from .._build import load_library
+
+    cap = load_library().l1_intervals_capacity(device, hmax)
+    if cap < 0:
+        raise RuntimeError("l1_candidates: the CUDA device could not be queried")
+    return cap
 
 
 def _cummax(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +93,116 @@ def l1_candidates(
         ``(iv_g0, iv_g1, iv_valid, ovf_hits, ovf_iv)``: two ``(F, ivmax)``
         int32 interval bounds (``iv_g0`` unclamped at contig starts), the
         ``(F, ivmax)`` bool validity and two 0-d bool overflow flags.
+
+    CUDA tensors launch the kernels, CPU tensors take
+    `l1_candidates_reference`, anything else raises; neither falls back
+    to the other.  The two routes agree exactly: the flags always,
+    ``iv_valid`` whenever ``ovf_iv`` is clear, and ``iv_g0``/``iv_g1``
+    wherever ``iv_valid`` holds.  The columns past a fragment's intervals
+    hold 0 on the kernel route (the plain version leaves other
+    fragments' bounds there); nothing reads them.
     """
+    global launches
+    dev = q_sorted.device
+    if dev.type == "cpu":
+        return l1_candidates_reference(
+            q_sorted, s_sizes, uniq_hash, row_start, row_len, post_gpos, freq_threshold,
+            min_hits_table, hash_bucket, hmax, ivmax, l, bucket_steps, m_values,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"l1_candidates runs on cuda or cpu tensors, got {dev}")
+    if q_sorted.dim() != 2 or q_sorted.dtype != torch.int64:
+        raise TypeError("q_sorted must be an (F, S) int64 tensor")
+    F, S = q_sorted.shape
+    for name, t, n in (
+        ("s_sizes", s_sizes, F), ("uniq_hash", uniq_hash, None), ("row_start", row_start, None),
+        ("row_len", row_len, None), ("post_gpos", post_gpos, None),
+        ("min_hits_table", min_hits_table, None), ("hash_bucket", hash_bucket, None),
+    ):
+        if t.dim() != 1 or t.dtype != torch.int32 or t.device != dev:
+            raise TypeError(f"{name} must be a 1-D int32 tensor on {dev}")
+        if n is not None and t.shape[0] != n:
+            raise ValueError(f"{name} holds {t.shape[0]} entries, expected {n}")
+    U = uniq_hash.shape[0]
+    if row_start.shape[0] != U or row_len.shape[0] != U:
+        raise ValueError("uniq_hash, row_start and row_len must have one length")
+    if hash_bucket.shape[0] < 2 or min_hits_table.shape[0] < 1:
+        raise ValueError("hash_bucket needs 2 entries or more, min_hits_table 1 or more")
+
+    import ctypes
+
+    from .._build import load_library
+
+    lib = load_library()
+    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    T = F * hmax
+    iv_g0 = torch.empty((F, ivmax), dtype=torch.int32, device=dev)
+    iv_g1 = torch.empty((F, ivmax), dtype=torch.int32, device=dev)
+    iv_valid = torch.empty((F, ivmax), dtype=torch.bool, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)  # ovf_hits, ovf_iv
+    if F == 0:
+        ovf = flags != 0
+        return iv_g0, iv_g1, iv_valid, ovf[0], ovf[1]
+    if q_sorted.stride(1) != 1:  # the session's column slice keeps unit stride: no copy
+        q_sorted = q_sorted.contiguous()
+    s_sizes, post_gpos = s_sizes.contiguous(), post_gpos.contiguous()
+    uniq_hash, row_start, row_len = uniq_hash.contiguous(), row_start.contiguous(), row_len.contiguous()
+    min_hits_table, hash_bucket = min_hits_table.contiguous(), hash_bucket.contiguous()
+    probe_len = torch.empty((F, S), dtype=torch.int32, device=dev)
+    probe_start = torch.empty((F, S), dtype=torch.int32, device=dev)
+    counts = torch.empty(F, dtype=torch.int64, device=dev)
+    bits = int(hash_bucket.shape[0] - 1).bit_length() - 1
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launches go to the current device
+        err = lib.l1_probe_launch(
+            ptr(q_sorted), q_sorted.stride(0), ptr(s_sizes), F, S, ptr(uniq_hash),
+            ptr(row_start), ptr(row_len), U, ptr(hash_bucket), bits, bucket_steps,
+            min(int(freq_threshold), 2**62),
+            ptr(probe_len), ptr(probe_start), ptr(counts), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"l1_probe kernel launch failed: {lib.cuda_error_string(err).decode()}")
+        ends = torch.cumsum(counts, dim=0)  # each fragment's slots end at min(ends[f], T)
+        cap = _shared_slots(dev.index, hmax)
+        # a fragment past the block's shared memory sorts in its own slots
+        scratch = torch.empty(max(T, 1), dtype=torch.int32, device=dev)
+        err = lib.l1_intervals_launch(
+            ptr(probe_len), ptr(probe_start), ptr(counts), ptr(ends), F, S, ptr(s_sizes),
+            ptr(min_hits_table), min_hits_table.shape[0], ptr(post_gpos), post_gpos.shape[0],
+            T, ivmax, l, cap, ptr(iv_g0), ptr(iv_g1), ptr(iv_valid), ptr(flags), ptr(scratch),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"l1_intervals kernel launch failed: {lib.cuda_error_string(err).decode()}")
+    launches += 1
+    ovf = flags != 0
+    return iv_g0, iv_g1, iv_valid, ovf[0], ovf[1]
+
+
+def l1_candidates_reference(
+    q_sorted: torch.Tensor,
+    s_sizes: torch.Tensor,
+    uniq_hash: torch.Tensor,
+    row_start: torch.Tensor,
+    row_len: torch.Tensor,
+    post_gpos: torch.Tensor,
+    freq_threshold: int,
+    min_hits_table: torch.Tensor,
+    hash_bucket: torch.Tensor,
+    hmax: int,
+    ivmax: int,
+    l: int,
+    bucket_steps: int,
+    m_values: tuple,
+):
+    """The plain torch version of `l1_candidates` (same arguments and
+    result): whole-array ops over the flat ``F * hmax`` hit axis."""
+    global reference_calls
+    reference_calls += 1
     dev = q_sorted.device
     F, S = q_sorted.shape
     M = post_gpos.shape[0]

@@ -115,7 +115,7 @@ def real_case(gpu: str):
     passes = session.stats["dispatches"] - passes
     print(f"small batch: {l2.launches} kernel launches in {passes} pass(es) of "
           f"query_many; budgets {session.budgets} ({gpu})", flush=True)
-    return cs.capture_l2_operands(session, batch)[1]
+    return cs.capture_operands(lambda: session.query_many(batch))[1]
 
 
 def ava_case():
@@ -129,7 +129,7 @@ def ava_case():
     for i, g in enumerate(genomes):
         sketch.add_genome(f"g{i}", g)
     session = Session(sketch.index())
-    return cs.capture_l2_operands(session, [[g] for g in genomes])[1]
+    return cs.capture_operands(lambda: session.query_many([[g] for g in genomes]))[1]
 
 
 def main() -> int:
