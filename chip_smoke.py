@@ -92,12 +92,34 @@ result:
     ``real`` and ``ava`` with the kernels' and the plain version's times,
     the kernels alone in device time and their bound (`l1_work`).
 
+14. (run after phase 13) the L2 sweep's chunk plan and merge
+    (``csrc/l2_sweep.cu``: ``l2_plan``, a count pass, a ``torch.cumsum``
+    and a slot pass; ``l2_merge``) and the gate + CGI and the identity fold
+    (``csrc/cgi.cu``: ``cgi_bins``, ``fold_bins``) against their plain
+    torch versions under their contracts (`_plan_err`: both flags and
+    ``ends`` always, the chunk operands on the live slots, 0 past
+    them; `_merge_err`: every interval while no flag is raised;
+    `_cgi_err`: the bins bitwise, ``-inf`` included, while no flag is
+    raised; `_fold_err`: every output), on CUDA tensors: the synthetic
+    cases of `SWEEP_CASES` (``main`` at the all-vs-all's shape, more
+    chunks than slots, ranges past their capacity, no valid interval, one
+    interval of ten chunks, chunks past their contig's end) and of
+    `CGI_CASES` (``main`` at the all-vs-all's shape, tied intervals, more
+    intervals than a warp, two query genomes with padded rows, genomes of
+    several contigs), the plan on an empty store (M = 0, where the plain
+    version cannot run) and the fold of empty bins; and, captured from
+    the path, ``real`` (phase 4's first group) and ``ava`` (the
+    all-vs-all's first group).  ``main``, ``real`` and ``ava`` with the
+    wrappers' and the plain versions' times, each wrapper's device time
+    (its kernels, ``cumsum`` and output fills) and its bound
+    (`plan_work`, `merge_work`, `cgi_work`, `fold_work`).
+
 Phases 4 to 6, 9, 10 and 11 each reset the kernels' launch counters
 before their run and fail unless every kernel ran and no plain version
 did.  The last lines are the card, a JSON object with one entry per
 kernel (launches summed over phases 4 to 6, 9, 10's steady pass and 11;
 times and bound at the case its ``case`` key names: ``real`` for the L2
-kernel, ``ava`` for the winnow and L1), and ``{"ok": true, "device":
+kernel, ``ava`` for the others), and ``{"ok": true, "device":
 {...}}``.
 Takes no arguments.  Imports neither JAX nor anything of
 ``pyfastani_tpu``, and fails if either was loaded.
@@ -760,24 +782,458 @@ def phase_l1(device, gpu: str) -> None:
     log(f"[13] l1_candidates on an empty index (U = M = 0): no interval, no flag ({gpu})")
 
 
+# phase 14: the L2 sweep's chunk plan and merge (`csrc/l2_sweep.cu`) and
+# the gate + CGI and the identity fold (`csrc/cgi.cu`); synthetic cases of
+# `sweep_case` and `cgi_case`
+SWEEP_CASES = ("main", "overflow", "range", "empty", "one_interval", "contig_edges")
+CGI_CASES = ("main", "ties", "wide_iv", "q2_padded", "draft")
+SWEEP_CMW, SWEEP_CMAX = 2985, 3072  # k = 16, l = 3000, as the presizer gives
+
+
+def _positions(rng, n_contigs: int, contig_len: int, gap: int = 3008, pads: int = 16):
+    """A position-ordered store's global positions (a minimizer every 1-23
+    bases of each contig, contigs ``gap`` apart, ``GBIG`` pads at the end),
+    with ``contig_offset``, ``cof_idx`` and the prefix-bucket table, its
+    shift and depth: the planes `l2_plan` reads."""
+    from pyfastani_tpu_torch._common import GBIG
+    from pyfastani_tpu_torch.index import _build_gpos_bucket
+
+    offs = np.arange(n_contigs + 1, dtype=np.int64) * (contig_len + gap)
+    per = contig_len // 13
+    steps = np.cumsum(rng.integers(1, 24, size=(n_contigs, per)), axis=1)
+    gpos = [np.unique(np.minimum(row, contig_len - 1)) + offs[c] for c, row in enumerate(steps)]
+    gpos = np.concatenate(gpos + [np.full(pads, GBIG)]).astype(np.int32)
+    bucket, shift, depth = _build_gpos_bucket(gpos[None, :])
+    return offs.astype(np.int32), np.searchsorted(gpos, offs).astype(np.int32), gpos, bucket[0], shift, depth
+
+
+def sweep_case(name: str):
+    """The operands of one synthetic `l2_plan` call of `SWEEP_CASES`, as
+    numpy arrays and ints in the wrapper's order, made from a seed: the
+    candidate intervals of F fragments (``ivmax`` columns each, a share
+    valid, the columns past them junk that nothing may read) over a store
+    of contigs.  ``main`` is the all-vs-all's shape (F 4096, ivmax 32,
+    t_chunks 37: 151,552 chunk slots); the others are small and each
+    drives one edge: more chunks than slots (``overflow``), ranges past
+    ``rcap`` (``range``), no valid interval (``empty``), one interval of
+    ten chunks (``one_interval``), and short contigs whose chunks' windows
+    end past the contig (``contig_edges``)."""
+    rng = np.random.default_rng(sum(name.encode()) + 14)
+    F, ivmax, t_chunks, frac, span_hi, rcap = 64, 8, 37, 0.6, SWEEP_CMAX, 896
+    n_contigs, contig_len = 8, 200_000
+    if name == "main":
+        F, ivmax, frac, span_hi, n_contigs, contig_len = 4096, 32, 0.5, 2 * SWEEP_CMAX, 64, 2_000_000
+    elif name == "overflow":
+        t_chunks, frac, span_hi = 2, 0.9, 4 * SWEEP_CMAX
+    elif name == "range":
+        rcap = 64
+    elif name == "empty":
+        frac = 0.0
+    elif name == "one_interval":
+        F, ivmax, t_chunks = 1, 1, 16
+    elif name == "contig_edges":
+        F, n_contigs, contig_len = 128, 200, 6_000
+    coff, cof, gpos, bucket, shift, depth = _positions(rng, n_contigs, contig_len)
+    NI = F * ivmax
+    n_f = rng.binomial(ivmax, frac, size=F)
+    valid = (np.arange(ivmax)[None, :] < n_f[:, None]).reshape(-1)
+    seq = rng.integers(0, n_contigs, NI)
+    c0 = rng.integers(0, contig_len, NI)
+    if name == "contig_edges":
+        c0 = contig_len - rng.integers(1, 2 * SWEEP_CMAX, NI).clip(max=contig_len)
+    c1 = np.minimum(c0 + rng.integers(1, span_hi + 1, NI) - 1, contig_len - 1)
+    if name == "one_interval":
+        valid[:], seq[:], c0[:], c1[:] = True, 3, 1000, 1000 + 10 * SWEEP_CMAX - 1
+    junk = ~valid
+    seq[junk] = rng.integers(-3, n_contigs + 3, int(junk.sum()))
+    c0[junk] = rng.integers(-5000, 5000, int(junk.sum()))
+    c1[junk] = rng.integers(-5000, 5000, int(junk.sum()))
+    frag = np.arange(NI) // ivmax
+    ch_max = -(-F * t_chunks // 256) * 256
+    return (frag, seq, c0, c1, valid, coff, cof, gpos, bucket, shift, depth,
+            SWEEP_CMW, SWEEP_CMAX, rcap, ch_max)
+
+
+def torch_args(case, device):
+    """A case's numpy operands as tensors on ``device``, ints as they are."""
+    import torch
+
+    return tuple(torch.from_numpy(np.array(a)).to(device) if isinstance(a, np.ndarray) else a
+                 for a in case)
+
+
+def merge_args(plan_out, iv_valid, seed: int = 5):
+    """`l2_merge` operands for a plan's outputs: chunk results drawn from a
+    seed, ``best`` from a narrow range so that chunks of one interval tie,
+    and the plan's ``ends``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = plan_out[0].shape[0]
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.int32)).to(plan_out[0].device)
+
+    return (put(rng.integers(-1, 6, n)), put(rng.integers(0, 5000, n)),
+            put(rng.integers(0, 5000, n)), plan_out[5], iv_valid)
+
+
+def cgi_case(name: str):
+    """The operands of one synthetic `cgi_bins` call of `CGI_CASES`, as
+    numpy arrays and ints in the wrapper's order, made from a seed: merged
+    intervals of F fragments with best shared counts around the gate, so
+    that some map and some do not, and columns past each fragment's
+    intervals junk.  ``main`` is the all-vs-all's shape (F 4096, ivmax 32,
+    q 16, 512 one-contig genomes, bin_max 1728); ``ties`` puts two
+    intervals of one fragment on one genome at one identity (and more
+    ties across a genome's contigs); ``wide_iv`` has ivmax 80, past a
+    warp; ``q2_padded`` two query genomes and padded rows; ``draft`` one
+    query genome against genomes of several contigs."""
+    from pyfastani_tpu_torch import stats
+
+    rng = np.random.default_rng(sum(name.encode()) + 15)
+    F, ivmax, q, C, per_genome, bin_max, smax, l, k = 64, 8, 2, 24, 3, 64, 384, 3000, 16
+    if name == "main":
+        F, ivmax, q, C, per_genome, bin_max = 4096, 32, 16, 512, 1, 1728
+    elif name == "ties":
+        F, ivmax, q, C, per_genome = 8, 4, 1, 6, 2
+    elif name == "wide_iv":
+        ivmax = 80
+    elif name == "draft":
+        F, q, C, per_genome, bin_max = 512, 1, 64, 8, 400
+    g_max = C // per_genome
+    s2g = (np.arange(C) // per_genome).astype(np.int32)
+    gate = np.asarray(stats.l2_gate_table(smax, k, 80.0))
+    ident = np.asarray(stats.identity_table(smax, k))
+    NI = F * ivmax
+    s = rng.integers(150, smax + 1, F).astype(np.int32)
+    qg = rng.integers(0, q, F).astype(np.int32)
+    valid = rng.random(NI) < 0.6
+    seq = rng.integers(0, C, NI)
+    s_iv = np.repeat(s, ivmax)
+    g_iv = gate[np.minimum(s_iv, gate.shape[0] - 1)]
+    best = np.clip(g_iv + rng.integers(-3, 6, NI), -1, smax)
+    first = rng.integers(0, bin_max * l, NI)
+    last = first + rng.integers(0, 2 * l, NI)
+    if name == "ties":  # fragment 0: intervals 1 and 3 tie on genome 0, 0 below them
+        valid[:4], seq[:4] = True, [0, 1, 4, 0]
+        best[1] = best[3] = g_iv[0] + 2
+        best[0], best[2] = best[1] - 1, g_iv[0] + 4
+    if name == "q2_padded":  # the last quarter of the rows is padding
+        pad = np.arange(F) >= 3 * F // 4
+        s[pad], qg[pad] = 0, 0
+        valid[np.repeat(pad, ivmax)] = False
+    junk = ~valid
+    best[junk] = rng.integers(-2, smax, int(junk.sum()))
+    first[junk] = rng.integers(-(2**31), 2**31 - 1, int(junk.sum()))
+    last[junk] = rng.integers(-(2**31), 2**31 - 1, int(junk.sum()))
+    return (best, first, last, valid, seq, s, qg, gate, ident, s2g,
+            SWEEP_CMW, l, ivmax, bin_max, g_max, q)
+
+
+def fold_args(best_bin, case):
+    """`fold_bins` operands for a `cgi_case` and its bins."""
+    *_, s2g, _, _, _, bin_max, g_max, q = case
+    return best_bin, s2g, q, bin_max, g_max
+
+
+def _same_shape(what: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} output {i}: {g.shape} {g.dtype} != {w.shape} {w.dtype}")
+
+
+def _plan_err(got, want) -> int:
+    """The contract of `l2_plan`'s kernels against the plain version:
+    raises unless shapes, types, both flags and ``ends`` agree, and both
+    hold ``rlen = ch_len = ch_c0 = 0`` on the slots at and past ``min(total,
+    ch_max)``; returns the largest absolute difference of the five chunk
+    operands on the slots below it."""
+    _same_shape("l2_plan", got, want)
+    for name, g, w in zip(("overflow", "rovf"), got[6:], want[6:]):
+        if bool(g) != bool(w):
+            raise AssertionError(f"l2_plan {name} {bool(g)} != plain {bool(w)}")
+    if not bool((got[5] == want[5]).all()):
+        raise AssertionError("l2_plan ends differ from the plain version")
+    live = min(int(want[5][-1]), want[0].shape[0])
+    for out in (got, want):
+        for i in (1, 3, 4):
+            if bool(out[i][live:].any()):
+                raise AssertionError(f"l2_plan output {i} is not 0 past the live slots")
+    if live == 0:
+        return 0
+    return max(int((g[:live].long() - w[:live].long()).abs().max())
+               for g, w in zip(got[:5], want[:5]))
+
+
+def _merge_err(got, want, flagged: bool = False) -> int:
+    """The contract of `l2_merge`'s kernel: with the pass's flags clear,
+    the largest absolute difference of ``best``, ``first`` and ``last``
+    (0 when a flag is raised: the pass runs again)."""
+    _same_shape("l2_merge", got, want)
+    if flagged:
+        return 0
+    return max(int((g - w).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
+
+
+def _cgi_err(got, want, flagged: bool = False) -> float:
+    """The contract of `cgi_bins`' kernel: with the pass's flags clear,
+    ``best_bin`` bitwise equal; raises when an empty (``-inf``) bin or a
+    bit pattern differs, returns the largest absolute difference of the
+    occupied bins (0.0 when a flag is raised)."""
+    import torch
+
+    _same_shape("cgi_bins", (got,), (want,))
+    if flagged:
+        return 0.0
+    if not bool((torch.isinf(got) == torch.isinf(want)).all()):
+        raise AssertionError("cgi_bins empty bins differ from the plain version")
+    fin = ~torch.isinf(want)
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if err == 0.0 and not bool((got.view(torch.int32) == want.view(torch.int32)).all()):
+        raise AssertionError("cgi_bins bins differ from the plain version in their bits")
+    return err
+
+
+def _fold_err(got, want) -> int:
+    """The contract of `fold_bins`' kernel: every output equal; returns the
+    largest absolute difference."""
+    _same_shape("fold_bins", got, want)
+    return max(int((g - w).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    return dict(
+        bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+
+
+def plan_work(args, out) -> dict:
+    """The least work of ``l2_plan(*args)``, whose plain outputs are
+    ``out``, from this call's data.  Bytes: each interval's flag read, a
+    valid one's two window offsets, an interval with a chunk slot its
+    contig and fragment, and its running chunk count written; the contig
+    tables; each live slot's (below ``min(total, ch_max)``) two searches'
+    bucket bounds (8 bytes each) and the store positions they read (one a
+    step: each search's bucket needs ``ceil(log2(size + 1))`` steps, at
+    most ``steps``); each slot's five int32 operands written.  int32
+    operations: 6 an interval; a live slot's 3 a step of its owner's
+    search over ``ends``, 30 more and 4 a store search step.  A slot past
+    the live ones has no range, so it reads and searches nothing."""
+    import torch
+
+    from pyfastani_tpu_torch._common import BIG
+
+    _, seq, _, _, valid, coff, _, _, bucket, shift, steps, cmw, _, _, ch_max = args
+    ch_c0, ch_len, ends = out[3].long(), out[4].long(), out[5]
+    NI, C1 = seq.shape[0], coff.shape[0]
+    live = min(int(ends[-1]), ch_max)
+    n_ch = torch.diff(ends, prepend=ends.new_zeros(1))
+    owning = int(((n_ch > 0) & (ends - n_ch < ch_max)).sum())
+    owner = torch.searchsorted(ends, torch.arange(live, device=ends.device), right=True)
+    base = coff[seq[owner].clamp(0, C1 - 2)].long()
+    c0, ln = ch_c0[:live], ch_len[:live]
+    keys = torch.cat([base + c0, base + (c0 + ln - 1 + cmw).clamp(max=BIG)])
+    b = (keys >> shift).clamp(0, bucket.shape[0] - 2)
+    size = (bucket[b + 1] - bucket[b]).double()
+    depth = int(torch.ceil(torch.log2(size + 1)).clamp(max=steps).sum())
+    nbytes = (NI * (1 + 8) + int(valid.sum()) * 16 + owning * 16 + C1 * 8 + keys.numel() * 8
+              + 4 * depth + ch_max * 20 + 2)
+    ops = NI * 6 + live * (3 * max(1, (NI - 1).bit_length()) + 30) + 4 * depth
+    return _bound(nbytes, ops)
+
+
+def merge_work(args) -> dict:
+    """The least work of ``l2_merge(*args)``: each live chunk slot's three
+    results read, each interval's ``ends`` and flag read and three int64
+    written; 4 int32 operations a slot and 6 an interval."""
+    cbest, _, _, ends, _ = args
+    NI = ends.shape[0]
+    live = min(int(ends[-1]), cbest.shape[0])
+    return _bound(live * 12 + NI * (8 + 1 + 24), live * 4 + NI * 6)
+
+
+def cgi_work(args) -> dict:
+    """The least work of ``cgi_bins(*args)``, from this call's data: each
+    interval's best and flag read, each fragment's size, query genome and
+    gate (4 bytes each); a mapped interval's first, last and contig
+    (int64), its identity and genome looked up (4 bytes each); and
+    ``best_bin`` written once.  int32 operations: 4 an interval (the
+    gate) and 25 a mapped one (the bin, the identity, its comparisons)."""
+    import torch
+
+    best, _, _, valid, _, s_sizes, _, gate = args[:8]
+    s2g, ivmax, bin_max, q = args[9], args[12], args[13], args[15]
+    NI, F = best.shape[0], s_sizes.shape[0]
+    s_iv = s_sizes.long().repeat_interleave(ivmax)
+    gate_iv = gate.long()[s_iv.clamp(0, gate.shape[0] - 1)]
+    mapped = int((valid & (best > 0) & (best >= gate_iv)).sum())
+    n_bins = q * s2g.shape[0] * bin_max
+    return _bound(NI * (8 + 1) + F * 12 + mapped * (3 * 8 + 2 * 4) + n_bins * 4,
+                  NI * 4 + mapped * 25)
+
+
+def fold_work(args) -> dict:
+    """The least work of ``fold_bins(*args)``: the bins read once, the
+    contigs' genomes, three ``(q, g_max)`` int64 written; 6 int32
+    operations a bin."""
+    best_bin, s2g, q, _, g_max = args
+    n = best_bin.shape[0]
+    return _bound(n * 4 + s2g.shape[0] * 4 + 3 * q * g_max * 8, n * 6)
+
+
+# phase 14's four kernels: wrapper, plain version, contract, work, and the
+# device kernels' name
+SWEEP_KERNELS = {
+    "l2_plan": ("l2_sweep", "l2_plan", _plan_err, plan_work),
+    "l2_merge": ("l2_sweep", "l2_merge", _merge_err, merge_work),
+    "cgi_bins": ("cgi", "cgi_bins", _cgi_err, cgi_work),
+    "fold_bins": ("cgi", "fold_bins", _fold_err, fold_work),
+}
+
+
+def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
+                flagged: bool = False) -> dict:
+    """Kernel ``kernel`` of phase 14 against its plain version on ``args``
+    (CUDA tensors) under its contract (``flagged``: the pass's flags are
+    raised, which waives the merge's and CGI's); with ``timed``, both times
+    (plain, kernel, kernel, plain), the wrapper's device time and the
+    bound.  Returns the line's numbers and the plain outputs."""
+    import importlib
+
+    import torch
+
+    mod_name, fn, err_fn, work_fn = SWEEP_KERNELS[kernel]
+    mod = importlib.import_module(f"pyfastani_tpu_torch.ops.{mod_name}")
+    wrapper, plain = getattr(mod, fn), getattr(mod, f"{fn}_reference")
+    got = wrapper(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if kernel in ("l2_merge", "cgi_bins"):
+        err = err_fn(got, want, flagged)
+    else:
+        err = err_fn(got, want)
+    if err != 0:
+        raise AssertionError(f"{kernel} kernel differs from the plain version ({name}): {err}")
+    work = work_fn(args, want) if kernel == "l2_plan" else work_fn(args)
+    head = f"[14] {kernel} {name}: equal under the contract"
+    if kernel == "l2_plan":
+        head += (f" ({int(want[5][-1])} chunks of {args[14]} slots from {args[1].shape[0]} "
+                 f"intervals; overflow/range flags {bool(want[6])}/{bool(want[7])})")
+    if not timed:
+        log(f"{head} ({gpu})")
+        return dict(max_abs_err=err, want=want)
+    plain_a = time_ms(plain, args)
+    kern_a = time_ms(wrapper, args)
+    kern_b = time_ms(wrapper, args)
+    plain_b = time_ms(plain, args)
+    # the bound counts the function's outputs written once, the fills of
+    # the wrapper's outputs included: its device time is every kernel of
+    # its calls
+    alone = kernel_device_ms(wrapper, args, "")
+    log(
+        f"{head}; kernel {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
+        f"call, the wrapper's device time {alone:.4f} ms (its kernels, cumsum and fills); "
+        f"bound {work['bound_ms']:.4f} ms by "
+        f"{work['bound_by']} ({work['bytes']} B = {work['bytes_ms']:.4f} ms, {work['ops']} int32 "
+        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
+    )
+    return dict(
+        max_abs_err=err, ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+        device_ms=alone, bound_ms=work["bound_ms"], bound_by=work["bound_by"], library_ms=None,
+        want=want,
+    )
+
+
+def plan_no_store(device):
+    """`sweep_case` ``contig_edges`` against an empty store (M = 0), where
+    the plain version cannot run: every range is empty."""
+    case = list(sweep_case("contig_edges"))
+    case[6] = np.zeros_like(case[6])  # cof_idx
+    case[7] = case[7][:0]  # mini_gpos
+    case[8] = np.zeros_like(case[8])  # gpos_bucket
+    return torch_args(case, device)
+
+
+def phase_sweep(device, gpu: str) -> None:
+    """Phase 14's synthetic cases: `l2_plan` and `l2_merge` on every case
+    of `SWEEP_CASES`, then the plan on an empty store; `cgi_bins` and
+    `fold_bins` on every case of `CGI_CASES`, then the fold of all-empty
+    bins.  ``main`` timed."""
+    import torch
+
+    from pyfastani_tpu_torch.ops import cgi, l2_sweep
+
+    for name in SWEEP_CASES:
+        args = torch_args(sweep_case(name), device)
+        plan = check_sweep("l2_plan", name, args, gpu, timed=name == "main")["want"]
+        if bool(plan[6]) != (name == "overflow") or bool(plan[7]) != (name == "range"):
+            raise AssertionError(f"sweep case {name}: flags {bool(plan[6])}/{bool(plan[7])}")
+        check_sweep("l2_merge", name, merge_args(plan, args[4]), gpu, timed=name == "main",
+                    flagged=bool(plan[6]))
+    plan = l2_sweep.l2_plan(*plan_no_store(device))
+    torch.cuda.synchronize()
+    if bool(plan[1].any()) or bool(plan[7]):
+        raise AssertionError("l2_plan found ranges in an empty store")
+    log(f"[14] l2_plan on an empty store (M = 0): every range empty, no range flag ({gpu})")
+    for name in CGI_CASES:
+        case = cgi_case(name)
+        bins = check_sweep("cgi_bins", name, torch_args(case, device), gpu,
+                           timed=name == "main")["want"]
+        if int(torch.isfinite(bins).sum()) == 0:
+            raise AssertionError(f"cgi case {name}: no bin occupied")
+        check_sweep("fold_bins", name, torch_args(fold_args(bins, case), device), gpu,
+                    timed=name == "main")
+    empty = torch.full_like(bins, -np.inf)
+    counts = cgi.fold_bins(*torch_args(fold_args(empty, case), device))[0]
+    torch.cuda.synchronize()
+    if bool(counts.any()):
+        raise AssertionError("fold_bins counted bins of an empty best_bin")
+    log(f"[14] fold_bins of all-empty bins: no count ({gpu})")
+
+
+def check_sweep_path(name: str, captured: dict, gpu: str, timed: bool) -> dict:
+    """The four kernels of phase 14 against their plain versions on the
+    operands captured from one group of the path (`capture_operands`);
+    returns each kernel's numbers."""
+    plan = check_sweep("l2_plan", name, captured["l2_plan"], gpu, timed)
+    flagged = bool(plan["want"][6]) or bool(plan["want"][7])
+    out = {"l2_plan": plan}
+    out["l2_merge"] = check_sweep("l2_merge", name, captured["l2_merge"], gpu, timed, flagged)
+    out["cgi_bins"] = check_sweep("cgi_bins", name, captured["cgi_bins"], gpu, timed, flagged)
+    out["fold_bins"] = check_sweep("fold_bins", name, captured["fold_bins"], gpu, timed)
+    return out
+
+
 # operands of `l2_chunks` and of `l1_candidates` that are the session's
 # parked index planes (mini_hash, mini_wpos, mini_prev; uniq_hash,
 # row_start, row_len, post_gpos, hash_bucket): no pass writes them
 STORE_OPERANDS = (2, 3, 4)
 L1_STORE_OPERANDS = (2, 3, 4, 5, 8)
+# the same of phase 14's kernels: the contig tables, mini_gpos and the
+# gpos bucket; the gate and identity tables and seq_to_genome
+SWEEP_STORE_OPERANDS = {
+    "l2_plan": (5, 6, 7, 8), "l2_merge": (), "cgi_bins": (7, 8, 9), "fold_bins": (1,),
+}
 
 
 def capture_operands(run):
-    """``(result, l2_operands, winnow_operands, l1_operands)``: ``run()``
-    (a query through the session) and the operands of its first
-    `l2_chunks`, `winnow_fragments` and `l1_candidates` call, cloned but
-    for the index planes, which are kept by reference."""
+    """``(result, l2_operands, winnow_operands, l1_operands,
+    sweep_operands)``: ``run()`` (a query through the session) and the
+    operands of its first `l2_chunks`, `winnow_fragments` and
+    `l1_candidates` call, and (a dict by name) of its first call of each
+    kernel of `SWEEP_KERNELS`, cloned but for the index planes and
+    tables, which are kept by reference."""
     import torch
 
     from pyfastani_tpu_torch import session as session_module
 
     captured = {}
-    keep = {"l2_chunks": STORE_OPERANDS, "winnow_fragments": (), "l1_candidates": L1_STORE_OPERANDS}
+    keep = {"l2_chunks": STORE_OPERANDS, "winnow_fragments": (), "l1_candidates": L1_STORE_OPERANDS,
+            **SWEEP_STORE_OPERANDS}
     originals = {name: getattr(session_module, name) for name in keep}
 
     def capturing(name):
@@ -797,7 +1253,8 @@ def capture_operands(run):
     finally:
         for name, fn in originals.items():
             setattr(session_module, name, fn)
-    return result, captured["l2_chunks"], captured["winnow_fragments"], captured["l1_candidates"]
+    return (result, captured["l2_chunks"], captured["winnow_fragments"],
+            captured["l1_candidates"], {name: captured[name] for name in SWEEP_STORE_OPERANDS})
 
 
 def ava_genomes(n_genomes: int = AVA_GENOMES, lengths=AVA_LENGTHS):
@@ -826,21 +1283,37 @@ def hit_key(hits):
     return [(h.name, h.identity, h.matches, h.fragments) for h in hits]
 
 
+def kernel_counters() -> dict:
+    """Each wrapper's counters by kernel name: ``(module, prefix)``, the
+    module's ints ``<prefix>launches`` and ``<prefix>reference_calls``
+    (the prefix is empty in a module of one wrapper)."""
+    from pyfastani_tpu_torch.ops import cgi, fragments, l1, l2, l2_sweep
+
+    return {
+        "l2_chunks": (l2, ""), "winnow_fragments": (fragments, ""), "l1_candidates": (l1, ""),
+        **{name: (l2_sweep, f"{name}_") for name in ("l2_plan", "l2_merge")},
+        **{name: (cgi, f"{name}_") for name in ("cgi_bins", "fold_bins")},
+    }
+
+
+def read_counts(kind: str) -> dict:
+    """``launches`` or ``reference_calls`` of every wrapper, by name."""
+    return {name: getattr(mod, prefix + kind)
+            for name, (mod, prefix) in kernel_counters().items()}
+
+
 def counted(run):
     """``run()`` with every kernel's counters set to 0 just before it and
     read just after: ``(result, launches)``, ``launches`` a `Counter` by
     kernel name; fails unless every kernel ran and no plain version did."""
     from collections import Counter
 
-    from pyfastani_tpu_torch.ops import fragments, l1, l2
-
-    wrappers = {"l2_chunks": l2, "winnow_fragments": fragments, "l1_candidates": l1}
-    for mod in wrappers.values():
-        mod.launches = 0
-        mod.reference_calls = 0
+    for mod, prefix in kernel_counters().values():
+        for kind in ("launches", "reference_calls"):
+            setattr(mod, prefix + kind, 0)
     out = run()
-    launches = Counter({name: mod.launches for name, mod in wrappers.items()})
-    plain = {name: mod.reference_calls for name, mod in wrappers.items()}
+    launches = Counter(read_counts("launches"))
+    plain = read_counts("reference_calls")
     if min(launches.values()) <= 0 or any(plain.values()):
         raise AssertionError(
             f"the path ran the kernels {dict(launches)} times and their plain versions "
@@ -929,8 +1402,8 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         f"ingest, index and queries {t_host:.1f} s); "
         f"unrelated query -> []; kernel launches {dict(launches)}, plain-version runs 0"
     )
-    _, real, real_winnow, real_l1 = capture_operands(lambda: session.query_many(batch))
-    return mapper, many, launches, real, real_winnow, real_l1
+    _, real, real_winnow, real_l1, real_sweep = capture_operands(lambda: session.query_many(batch))
+    return mapper, many, launches, real, real_winnow, real_l1, real_sweep
 
 
 def phase_mesh(gpu: str, mapper, queries, want):
@@ -1231,11 +1704,12 @@ def phase_ava(gpu: str):
     def first_run():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hits, operands, winnow_ops, l1_ops = capture_operands(lambda: session.query_many(batch))
+        hits, operands, winnow_ops, l1_ops, sweep_ops = capture_operands(
+            lambda: session.query_many(batch))
         torch.cuda.synchronize()
-        return hits, operands, winnow_ops, l1_ops, time.perf_counter() - t0
+        return hits, operands, winnow_ops, l1_ops, sweep_ops, time.perf_counter() - t0
 
-    (first, operands, winnow_ops, l1_ops, t_first), launches_first = counted(first_run)
+    (first, operands, winnow_ops, l1_ops, sweep_ops, t_first), launches_first = counted(first_run)
     ran = {k: session.stats[k] - before[k] for k in before}
     peak_first = torch.cuda.max_memory_allocated()
     # the clones of the capture, held on the card from the first pass on
@@ -1247,6 +1721,11 @@ def phase_ava(gpu: str):
         a.numel() * a.element_size()
         for i, a in enumerate(l1_ops)
         if isinstance(a, torch.Tensor) and i not in L1_STORE_OPERANDS
+    ) + sum(
+        a.numel() * a.element_size()
+        for name, ops in sweep_ops.items()
+        for i, a in enumerate(ops)
+        if isinstance(a, torch.Tensor) and i not in SWEEP_STORE_OPERANDS[name]
     )
 
     def steady_run():
@@ -1274,7 +1753,7 @@ def phase_ava(gpu: str):
         f"device memory "
         f"(allocated, the parked index included) {peak_first / 2**30:.3f} GiB in the first pass, "
         f"{peak / 2**30:.3f} GiB in the steady one, {held / 2**20:.1f} MiB of each the captured "
-        f"L2, winnow and L1 operands"
+        f"operands of the path's kernels"
     )
     log(
         f"[10] {sum(len(h) for h in first)} hits, equal in both passes: every genome hits "
@@ -1302,7 +1781,7 @@ def phase_ava(gpu: str):
     del session
     torch.cuda.empty_cache()
     phase_ava_four_cards(gpu, mapper, batch, first)
-    return launches, operands, winnow_ops, l1_ops
+    return launches, operands, winnow_ops, l1_ops, sweep_ops
 
 
 def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
@@ -1452,23 +1931,27 @@ def main() -> int:
     phase_kernel(device, gpu)
     phase_winnow(device, gpu)
     phase_l1(device, gpu)
+    phase_sweep(device, gpu)
     refs, queries, unrelated = genomes()
-    mapper, many, launches, real, real_winnow, real_l1 = phase_query(gpu, refs, queries, unrelated)
+    mapper, many, launches, real, real_winnow, real_l1, real_sweep = phase_query(
+        gpu, refs, queries, unrelated)
     kern = check_kernel("real (one L2 sweep of phase 4's small batch)", real, gpu)
     check_winnow("real (phase 4's first group)", real_winnow, gpu)
     check_l1("real (phase 4's first group)", real_l1, gpu)
+    check_sweep_path("real (phase 4's first group)", real_sweep, gpu, timed=True)
     launches += phase_mesh(gpu, mapper, queries, many)
     launches += phase_pipeline(gpu, mapper, queries)
     phase_ingest(gpu, refs)
     phase_nccl(gpu, mapper, queries[0], many[0])
     launches += phase_escalation(gpu, mapper, queries, many)
     launches += phase_case(gpu, mapper, queries, many)
-    del mapper, real, real_winnow, real_l1
-    ava_launches, ava_ops, ava_winnow, ava_l1 = phase_ava(gpu)
+    del mapper, real, real_winnow, real_l1, real_sweep
+    ava_launches, ava_ops, ava_winnow, ava_l1, ava_sweep = phase_ava(gpu)
     launches += ava_launches
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
     winnow = check_winnow("ava (the all-vs-all's first group)", ava_winnow, gpu)
     cand = check_l1("ava (the all-vs-all's first group)", ava_l1, gpu)
+    sweep = check_sweep_path("ava (the all-vs-all's first group)", ava_sweep, gpu, timed=True)
     loaded = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")
@@ -1504,7 +1987,17 @@ def main() -> int:
         "launches": launches["l1_candidates"],
         "case": "ava",
         **{k: v for k, v in cand.items() if k not in ("device_ms", "scratch_fragments")},
-    }]}))
+    }] + [{
+        # hand kernels of the port: the JAX package's steps are XLA programs
+        "name": name,
+        "route": "cuda",
+        "source": f"pyfastani_tpu_torch/csrc/{'l2_sweep' if name.startswith('l2_') else 'cgi'}.cu",
+        "replaces": f"pyfastani_tpu/parallel/sharded.py:{line}",
+        "launches": launches[name],
+        "case": "ava",
+        **{k: v for k, v in sweep[name].items() if k not in ("device_ms", "want")},
+    } for name, line in (("l2_plan", 403), ("l2_merge", 519), ("cgi_bins", 611),
+                         ("fold_bins", 1219))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

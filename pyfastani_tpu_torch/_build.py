@@ -139,4 +139,28 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,  # iv_g0, iv_g1, iv_valid, flags, scratch, stream
     ]
     lib.l1_intervals_launch.restype = i32
+    lib.l2_plan_count_launch.argtypes = [ptr, ptr, ptr, i64, i64, ptr, ptr]  # c0, c1, valid, NI, cmax, n_ch, stream
+    lib.l2_plan_count_launch.restype = i32
+    lib.l2_plan_launch.argtypes = [
+        ptr, i64, i64, ptr, ptr, ptr, ptr,  # ends, NI, ch_max, seq, c0, c1, frag_of_iv
+        ptr, i64, ptr, ptr, i64,  # contig_offset, its length, cof_idx, mini_gpos, M
+        ptr, i64, i32, i32, i64, i64, i64,  # gpos_bucket, its length, shift, steps, cmw, cmax, rcap
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # lo, rlen, frag, c0, len, flags, stream
+    ]
+    lib.l2_plan_launch.restype = i32
+    lib.l2_merge_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i64, i64,  # cbest, cfirst, clast, ends, valid, NI, ch_max
+        ptr, ptr, ptr, ptr,  # best, first, last, stream
+    ]
+    lib.l2_merge_launch.restype = i32
+    lib.cgi_bins_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # best, first, last, valid, seq, s_sizes, frag_qg
+        ptr, i64, ptr, i64, i64,  # gate, its length, ident, smax_tab, its row stride
+        ptr, i64, i64, i64, i64, i64, i64,  # seq_to_genome, C, F, ivmax, cmw, l, bin_max
+        ptr, ptr,  # best_bin, stream
+    ]
+    lib.cgi_bins_launch.restype = i32
+    # best_bin, seq_to_genome, q_count, C, bin_max, g_max, out, stream
+    lib.fold_bins_launch.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr, ptr]
+    lib.fold_bins_launch.restype = i32
     return lib

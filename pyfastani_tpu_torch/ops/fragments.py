@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .._common import UMAX
+from ._cuda import cuda_device, current_stream, ptr, raise_on
 from .winnow import _complement_lut, nucl_canonical, prot_hashes, winnow, winnow_chunk
 
 __all__ = ["winnow_fragments", "winnow_fragments_reference", "winnow_long_sequence"]
@@ -61,18 +62,13 @@ def winnow_fragments(
         raise TypeError("frags must be a (F, length + pad) uint8 tensor")
     if frags.shape[1] < length:
         raise ValueError(f"frags rows hold {frags.shape[1]} bytes, fewer than length {length}")
-    dev = frags.device
-    if dev.type == "cpu":
+    dev = cuda_device("winnow_fragments", frags)
+    if dev is None:
         return winnow_fragments_reference(frags, k, w, length, protein, kc)
-    if dev.type != "cuda":
-        raise ValueError(f"winnow_fragments runs on cuda or cpu tensors, got {dev}")
-
-    import ctypes
 
     from .._build import load_library
 
     lib = load_library()
-    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
     F = frags.shape[0]
     wout = max(0, min(kc, length - k - w + 2))  # the reference's min(kc, P) columns
     q_sorted = torch.empty((F, wout), dtype=torch.int64, device=dev)
@@ -83,7 +79,7 @@ def winnow_fragments(
     if frags.stride(1) != 1:
         frags = frags.contiguous()
     comp = _complement_lut(dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    stream = current_stream(dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
         # a fragment too long for shared memory takes the scratch variant,
         # whose global scratch comes from the caching allocator
@@ -91,16 +87,10 @@ def winnow_fragments(
         if need < 0:
             raise RuntimeError("winnow_fragments: the CUDA device could not be queried")
         scratch = torch.empty(need, dtype=torch.uint8, device=dev) if need else None
-        err = lib.winnow_fragments_launch(
-            ctypes.c_void_p(frags.data_ptr()), frags.stride(0), F, length, k, w, int(protein),
-            kc, wout, ctypes.c_void_p(comp.data_ptr()), ctypes.c_void_p(q_sorted.data_ptr()),
-            ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(ovf.data_ptr()),
-            ctypes.c_void_p(None if scratch is None else scratch.data_ptr()), need, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"winnow_fragments kernel launch failed: {lib.cuda_error_string(err).decode()}"
-        )
+        raise_on("winnow_fragments", lib.winnow_fragments_launch(
+            ptr(frags), frags.stride(0), F, length, k, w, int(protein), kc, wout, ptr(comp),
+            ptr(q_sorted), ptr(s), ptr(ovf), ptr(scratch) if need else None, need, stream,
+        ))
     launches += 1
     return ovf[0] != 0, q_sorted, s
 

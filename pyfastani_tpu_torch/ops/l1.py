@@ -32,6 +32,7 @@ import functools
 import torch
 
 from .._common import GBIG, i32_to_hash
+from ._cuda import check, cuda_device, current_stream, ptr, raise_on
 
 __all__ = ["l1_candidates", "l1_candidates_reference"]
 
@@ -103,14 +104,12 @@ def l1_candidates(
     fragments' bounds there); nothing reads them.
     """
     global launches
-    dev = q_sorted.device
-    if dev.type == "cpu":
+    dev = cuda_device("l1_candidates", q_sorted)
+    if dev is None:
         return l1_candidates_reference(
             q_sorted, s_sizes, uniq_hash, row_start, row_len, post_gpos, freq_threshold,
             min_hits_table, hash_bucket, hmax, ivmax, l, bucket_steps, m_values,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"l1_candidates runs on cuda or cpu tensors, got {dev}")
     if q_sorted.dim() != 2 or q_sorted.dtype != torch.int64:
         raise TypeError("q_sorted must be an (F, S) int64 tensor")
     F, S = q_sorted.shape
@@ -119,22 +118,16 @@ def l1_candidates(
         ("row_len", row_len, None), ("post_gpos", post_gpos, None),
         ("min_hits_table", min_hits_table, None), ("hash_bucket", hash_bucket, None),
     ):
-        if t.dim() != 1 or t.dtype != torch.int32 or t.device != dev:
-            raise TypeError(f"{name} must be a 1-D int32 tensor on {dev}")
-        if n is not None and t.shape[0] != n:
-            raise ValueError(f"{name} holds {t.shape[0]} entries, expected {n}")
+        check(name, dev, torch.int32, t, n)
     U = uniq_hash.shape[0]
     if row_start.shape[0] != U or row_len.shape[0] != U:
         raise ValueError("uniq_hash, row_start and row_len must have one length")
     if hash_bucket.shape[0] < 2 or min_hits_table.shape[0] < 1:
         raise ValueError("hash_bucket needs 2 entries or more, min_hits_table 1 or more")
 
-    import ctypes
-
     from .._build import load_library
 
     lib = load_library()
-    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
     T = F * hmax
     iv_g0 = torch.empty((F, ivmax), dtype=torch.int32, device=dev)
     iv_g1 = torch.empty((F, ivmax), dtype=torch.int32, device=dev)
@@ -152,32 +145,24 @@ def l1_candidates(
     probe_start = torch.empty((F, S), dtype=torch.int32, device=dev)
     counts = torch.empty(F, dtype=torch.int64, device=dev)
     bits = int(hash_bucket.shape[0] - 1).bit_length() - 1
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    stream = current_stream(dev)
     with torch.cuda.device(dev):  # the launches go to the current device
-        err = lib.l1_probe_launch(
+        raise_on("l1_probe", lib.l1_probe_launch(
             ptr(q_sorted), q_sorted.stride(0), ptr(s_sizes), F, S, ptr(uniq_hash),
             ptr(row_start), ptr(row_len), U, ptr(hash_bucket), bits, bucket_steps,
             min(int(freq_threshold), 2**62),
             ptr(probe_len), ptr(probe_start), ptr(counts), stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"l1_probe kernel launch failed: {lib.cuda_error_string(err).decode()}")
+        ))
         ends = torch.cumsum(counts, dim=0)  # each fragment's slots end at min(ends[f], T)
         cap = _shared_slots(dev.index, hmax)
         # a fragment past the block's shared memory sorts in its own slots
         scratch = torch.empty(max(T, 1), dtype=torch.int32, device=dev)
-        err = lib.l1_intervals_launch(
+        raise_on("l1_intervals", lib.l1_intervals_launch(
             ptr(probe_len), ptr(probe_start), ptr(counts), ptr(ends), F, S, ptr(s_sizes),
             ptr(min_hits_table), min_hits_table.shape[0], ptr(post_gpos), post_gpos.shape[0],
             T, ivmax, l, cap, ptr(iv_g0), ptr(iv_g1), ptr(iv_valid), ptr(flags), ptr(scratch),
             stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"l1_intervals kernel launch failed: {lib.cuda_error_string(err).decode()}")
+        ))
     launches += 1
     ovf = flags != 0
     return iv_g0, iv_g1, iv_valid, ovf[0], ovf[1]

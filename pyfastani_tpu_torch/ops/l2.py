@@ -35,6 +35,7 @@ import torch
 
 from .. import _native
 from .._common import BIG, hash_to_i32, i32_to_hash
+from ._cuda import cuda_device, current_stream, ptr, raise_on
 
 __all__ = [
     "compute_mini_prev",
@@ -150,22 +151,17 @@ def l2_chunks(
     planes = dict(mini_hash=mini_hash, mini_wpos=mini_wpos, mini_prev=mini_prev)
     chunks = dict(lo=lo, rlen=rlen, frag=frag, c0=c0, clen=clen)
     _check_operands(q_sorted, s_sizes, planes, chunks)
-    dev = q_sorted.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"l2_chunks runs on cuda or cpu tensors, got {dev}")
-    if dev.type == "cpu":
+    dev = cuda_device("l2_chunks", q_sorted)
+    if dev is None:
         return l2_chunks_reference(
             q_sorted, s_sizes, mini_hash, mini_wpos, mini_prev,
             lo, rlen, frag, c0, clen, cmw, rmax,
         )
 
-    import ctypes
-
     from .._build import load_library
 
     lib = load_library()
     S = q_sorted.shape[1]
-    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
     N = lo.shape[0]
     best = torch.empty(N, dtype=torch.int32, device=dev)
     first = torch.empty_like(best)
@@ -176,9 +172,9 @@ def l2_chunks(
     # the kernel reads sketches as uint32: int32 tensors with the same bits
     ops = [hash_to_i32(q_sorted), s_sizes, mini_hash, mini_wpos, mini_prev]
     ops = [t.contiguous() for t in ops + [lo, rlen, frag, c0, clen]]
-    ptr = [ctypes.c_void_p(t.data_ptr()) for t in ops]
-    out_ptr = [ctypes.c_void_p(t.data_ptr()) for t in (best, first, last, range_bad)]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    op_ptr = [ptr(t) for t in ops]
+    out_ptr = [ptr(t) for t in (best, first, last, range_bad)]
+    stream = current_stream(dev)
     M, F = mini_hash.shape[0], q_sorted.shape[0]
     with torch.cuda.device(dev):  # the launch goes to the current device
         # ranges too long for shared memory take the scratch variant, whose
@@ -189,18 +185,15 @@ def l2_chunks(
             raise RuntimeError("l2_chunks: the CUDA device could not be queried")
         if fits:
             err = lib.l2_chunks_launch(
-                *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr, stream
+                *op_ptr[:2], S, *op_ptr[2:], N, cmw, rmax, M, F, *out_ptr, stream
             )
         else:
             scratch = torch.empty(words, dtype=torch.int32, device=dev)
             err = lib.l2_chunks_launch_scratch(
-                *ptr[:2], S, *ptr[2:], N, cmw, rmax, M, F, *out_ptr,
-                ctypes.c_void_p(scratch.data_ptr()), words, stream,
+                *op_ptr[:2], S, *op_ptr[2:], N, cmw, rmax, M, F, *out_ptr,
+                ptr(scratch), words, stream,
             )
-    if err != 0:
-        raise RuntimeError(
-            f"l2_chunks kernel launch failed: {lib.cuda_error_string(err).decode()}"
-        )
+    raise_on("l2_chunks", err)
     launches += 1
     return best, first, last, range_bad[0]
 

@@ -9,14 +9,17 @@ has four stages:
 
 1. the batched fragment winnow and sketch (`ops.fragments`);
 2. the L1 candidate intervals (`ops.l1`);
-3. the L2 chunk sweep (`_l2_interval_scan`), whose per-chunk evaluator is
-   `ops.l2.l2_chunks` -- the CUDA kernel on the GPU;
-4. the identity gate and the two CGI reductions.
+3. the L2 chunk sweep (`_l2_interval_scan`): the chunk plan
+   (`ops.l2_sweep.l2_plan`), the per-chunk evaluator `ops.l2.l2_chunks`
+   and the merge per interval (`ops.l2_sweep.l2_merge`);
+4. the identity gate and the two CGI reductions (`ops.cgi.cgi_bins`).
 
-The cells' per-bin best identities merge by an elementwise max over the
-data rows of each shard (the JAX package's ``pmax``; across processes one
-``all_reduce(MAX)``), and an exact fixed-point identity fold (`_fold`)
-reduces each shard to per-genome sums.
+Each stage's wrapper launches a CUDA kernel for CUDA tensors and runs its
+plain torch version for CPU tensors.  The cells' per-bin best identities
+merge by an elementwise max over the data rows of each shard (the JAX
+package's ``pmax``; across processes one ``all_reduce(MAX)``), and an
+exact fixed-point identity fold (`_fold`, `ops.cgi.fold_bins`) reduces
+each shard to per-genome sums.
 
 Passes are pipelined: fragments stage as the raw bytes of the input
 into two recycled host slots (pinned for CUDA devices) and copy to the
@@ -29,9 +32,9 @@ session doubles the budget and runs the batch again.  Every output is an
 integer and the identity mean is an exact fixed-point sum, so hits equal
 the JAX package's and the host NumPy engine's bitwise.
 
-Port of ``pyfastani_tpu/parallel/sharded.py`` (`_bucketed_gpos_search`,
-`_l2_interval_scan` in the structure of its ``use_pallas`` branch,
-`_query_block_impl`, the fold of ``block_fn`` and ``ShardedSession``).
+Port of ``pyfastani_tpu/parallel/sharded.py`` (`_l2_interval_scan` in
+the structure of its ``use_pallas`` branch, `_query_block_impl`, the fold
+of ``block_fn`` and ``ShardedSession``).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 
 from . import stats
-from ._common import BIG, resolve_device
+from ._common import resolve_device
 from .parallel.mesh import Mesh, make_mesh
 from .index import (
     ShardedIndex,
@@ -58,24 +61,17 @@ from .index import (
 from .models._params import Parameters
 from .models._types import Hit
 from .ops import codec
+from .ops.cgi import cgi_bins, fold_bins
 from .ops.fragments import winnow_fragments
 from .ops.l1 import l1_candidates
 from .ops.l2 import l2_chunks
+from .ops.l2_sweep import l2_merge, l2_plan
 
 __all__ = ["ShardedSession", "Session"]
 
 _CH_SLAB = 256  # the chunk budget is a multiple of this
-_I32_MIN = -(2**31)
-_I32_MAX = 2**31 - 1
 _BUDGET_NAMES = ["smax", "hmax", "ivmax", "t_chunks", "rmax"]
 _N_FLAGS = len(_BUDGET_NAMES) + 1  # the budget overflows, then the L2 range flag
-
-
-def _segment(values, seg, n_seg: int, reduce: str, identity):
-    """``jax.ops.segment_max/min``: ``reduce`` ("amax"/"amin") of
-    ``values`` by ``seg`` into ``n_seg`` slots, empty slots = identity."""
-    out = torch.full((n_seg,), identity, dtype=values.dtype, device=values.device)
-    return out.scatter_reduce_(0, seg, values, reduce)
 
 
 def _toupper(frags):
@@ -83,22 +79,6 @@ def _toupper(frags):
     ``a``-``z`` less 32, every other byte as it is (``codec.to_bytes``'s
     table on all 256 values).  Returns a new tensor."""
     return frags - ((frags - 97) < 26).to(torch.uint8) * 32
-
-
-def _bucketed_gpos_search(mini_gpos, keys, bucket, shift: int, steps: int):
-    """``searchsorted(mini_gpos, keys, 'left')`` through the prefix-bucket
-    table: ``steps`` rounds inside one bucket instead of log2(M)."""
-    b = (keys >> shift).clamp(0, bucket.shape[0] - 2)
-    lo = bucket[b].to(torch.int64)
-    hi = bucket[b + 1].to(torch.int64)
-    M = mini_gpos.shape[0]
-    for _ in range(steps):
-        active = lo < hi
-        mid = (lo + hi) // 2
-        go_right = mini_gpos[mid.clamp(0, max(M - 1, 0))] < keys
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    return lo
 
 
 def _l2_interval_scan(
@@ -115,59 +95,16 @@ def _l2_interval_scan(
     ``R - 128`` (``R = _l2_kernel_rows(rmax)``) is flagged.  Chunk results
     merge back per interval: the max, then the first/last anchor at it.
     """
-    dev = q_sorted.device
-    i64 = torch.int64
-    NI = iv_seq.shape[0]
-    span = torch.where(iv_valid, iv_c1 - iv_c0 + 1, 0)
-    n_ch = (span + cmax - 1) // cmax
-    ends = torch.cumsum(n_ch, dim=0)
-    total = ends[-1]
-    starts = ends - n_ch
-
-    j = torch.arange(ch_max, device=dev)
-    # owning interval per chunk slot: scatter each non-empty interval's id
-    # at its first slot, then fill forward with a running max
-    scat0 = torch.where(n_ch > 0, starts.clamp(max=ch_max), ch_max)
-    iv_of = torch.zeros(ch_max + 1, dtype=i64, device=dev).scatter_reduce_(
-        0, scat0, torch.arange(NI, device=dev), "amax"
-    )
-    iv_of_c = torch.cummax(iv_of[:ch_max], dim=0).values.clamp(0, NI - 1)
-    ch_valid = j < total
-    overflow = total > ch_max
-    ch_c0 = torch.where(ch_valid, iv_c0[iv_of_c] + (j - starts[iv_of_c]) * cmax, 0)
-    ch_len = torch.where(ch_valid, (iv_c1[iv_of_c] - ch_c0 + 1).clamp(0, cmax), 0)
-    ch_frag = frag_of_iv[iv_of_c]
-    coff = idx["contig_offset"]
-    seq_c = iv_seq[iv_of_c].clamp(0, coff.shape[0] - 2)
-    ch_base = coff[seq_c].to(i64)
-
     R = _l2_kernel_rows(rmax)
-    mini_gpos, gb = idx["mini_gpos"], idx["gpos_bucket"]
-    key_lo = ch_base + ch_c0
-    key_hi = ch_base + (ch_c0 + ch_len - 1 + cmw).clamp(max=BIG)
-    lo = _bucketed_gpos_search(mini_gpos, key_lo, gb, gpos_shift, gpos_steps)
-    hi = _bucketed_gpos_search(mini_gpos, key_hi, gb, gpos_shift, gpos_steps)
-    cof = idx["cof_idx"].to(i64)
-    lo = torch.maximum(lo, cof[seq_c])
-    hi = torch.minimum(hi, cof[seq_c + 1])
-    rlen = torch.where(ch_valid, (hi - lo).clamp(min=0), 0)
-    rovf = (rlen > R - 128).any()
-    rlen = rlen.clamp(0, R - 128)
-
-    i32 = torch.int32
+    lo, rlen, ch_frag, ch_c0, ch_len, ends, overflow, rovf = l2_plan(
+        frag_of_iv, iv_seq, iv_c0, iv_c1, iv_valid, idx["contig_offset"], idx["cof_idx"],
+        idx["mini_gpos"], idx["gpos_bucket"], gpos_shift, gpos_steps, cmw, cmax, R - 128, ch_max,
+    )
     cbest, cfirst, clast, range_bad = l2_chunks(
         q_sorted, s_sizes, idx["mini_hash"], idx["mini_wpos"], idx["mini_prev"],
-        lo.to(i32), rlen.to(i32), ch_frag.to(i32), ch_c0.to(i32), ch_len.to(i32),
-        cmw, R - 128,
+        lo, rlen, ch_frag, ch_c0, ch_len, cmw, R - 128,
     )
-    cbest, cfirst, clast = cbest.to(i64), cfirst.to(i64), clast.to(i64)
-
-    seg = torch.where(ch_valid, iv_of_c, NI)
-    best = _segment(cbest, seg, NI + 1, "amax", _I32_MIN)[:NI]
-    is_best = ch_valid & (cbest == best[iv_of_c])
-    first = _segment(torch.where(is_best, cfirst, BIG), seg, NI + 1, "amin", _I32_MAX)[:NI]
-    last = _segment(torch.where(is_best, clast, -BIG), seg, NI + 1, "amax", _I32_MIN)[:NI]
-    best = torch.where(iv_valid & (n_ch > 0), best, -1)
+    best, first, last = l2_merge(cbest, cfirst, clast, ends, iv_valid)
     return best, first, last, overflow, rovf, range_bad
 
 
@@ -227,38 +164,11 @@ def _query_block(
         [f.to(torch.int32) for f in (s_overflow, ovf_hits, ovf_iv, ovf_ch, ovf_r, range_bad)]
     )
 
-    s_iv = s_sizes[frag_of_iv].to(i64)
-    gate = gate_table[s_iv.clamp(0, gate_table.shape[0] - 1)]
-    mapped = iv_valid & (best > 0) & (best >= gate)
-
-    # plateau midpoint of the best anchors, reported at the window end
-    mean_pos = torch.div(first + last, 2, rounding_mode="floor") + (cmw - 1)
-    rbin = torch.div(mean_pos, l, rounding_mode="floor").clamp(0, bin_max - 1)
-    s2g = idx["seq_to_genome"]
-    C = s2g.shape[0]
-    seq_c = iv_seq.clamp(0, C - 1)
-    gid = s2g[seq_c].to(i64)
-
-    smax_tab = ident_table.shape[0] - 1
-    ident = ident_table[s_iv.clamp(0, smax_tab), best.clamp(0, smax_tab)]
-
-    # CGI step 1: one best mapping per (genome, fragment), the max float32
-    # identity, ties to the first interval in (seqId, pos) order
-    NIV = best.shape[0]
-    iv_arange = torch.arange(NIV, device=dev)
-    n_seg = F * (g_max + 1) + g_max + 1
-    fg = frag_of_iv * (g_max + 1) + torch.where(mapped, gid, g_max)
-    best_fg = _segment(torch.where(mapped, ident, -1.0), fg, n_seg, "amax", -np.inf)
-    tied = mapped & (ident == best_fg[fg])
-    first_iv = _segment(torch.where(tied, iv_arange, NIV), fg, n_seg, "amin", _I32_MAX)
-    keep1 = tied & (iv_arange == first_iv[fg])
-
-    # CGI step 2: dense per-(query genome, contig, bin) best identity
-    qg_of_iv = frag_qg[frag_of_iv].to(i64)
-    n_bins = q_count * C * bin_max
-    cbin = torch.where(keep1, qg_of_iv * (C * bin_max) + seq_c * bin_max + rbin, n_bins)
-    best_bin = _segment(torch.where(keep1, ident, -1.0), cbin, n_bins + 1, "amax", -np.inf)
-    return best_bin[:n_bins], flags
+    best_bin = cgi_bins(
+        best, first, last, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table,
+        idx["seq_to_genome"], cmw, l, ivmax, bin_max, g_max, q_count,
+    )
+    return best_bin, flags
 
 
 def _fold(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
@@ -269,24 +179,7 @@ def _fold(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
     depend on the reduction order.  Returns ``(counts, isum_hi, isum_lo)``,
     each ``(q_count, g_max)`` int64.
     """
-    dev = best_bin.device
-    C = seq_to_genome.shape[0]
-    bb3 = best_bin.reshape(q_count, C, bin_max)
-    occ = bb3 > 0.0
-    q17 = torch.round(torch.where(occ, bb3, 0.0) * 131072.0).to(torch.int64)
-    key = (
-        torch.arange(q_count, device=dev)[:, None] * g_max + seq_to_genome.to(torch.int64)
-    ).reshape(-1)
-
-    def fold(x_qc):
-        out = torch.zeros(q_count * g_max, dtype=torch.int64, device=dev)
-        return out.index_add_(0, key, x_qc.reshape(-1)).reshape(q_count, g_max)
-
-    return (
-        fold(occ.sum(dim=2)),
-        fold((q17 >> 12).sum(dim=2)),
-        fold((q17 & 0xFFF).sum(dim=2)),
-    )
+    return fold_bins(best_bin, seq_to_genome, q_count, bin_max, g_max)
 
 
 def _checkpoint_params(index: ShardedIndex, params):

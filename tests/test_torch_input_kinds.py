@@ -126,11 +126,19 @@ def test_input_kind_matches_jax_and_host_engine(panel, kind):
 
 
 @pytest.mark.parametrize("q_capacity, groups", [(16, 1), (1, 3)])
-def test_non_ascii_and_raw_genomes_in_one_or_separate_groups(panel, q_capacity, groups):
+def test_non_ascii_and_raw_genomes_in_one_or_separate_groups(panel, q_capacity, groups, monkeypatch):
     """A non-ASCII ``str`` genome beside a lowercase ``bytes`` and a
     mixed-case ``ndarray`` one: in one group the host uppercases all
     three and the device none; in three groups only the ``str`` group
-    skips the device's uppercase."""
+    skips the device's uppercase.
+
+    JAX's CPU backend may alias a host array in ``device_put``, and the
+    JAX session rewrites a staging buffer once that "transfer" is ready,
+    which can be before its asynchronous program has read it: the
+    reference then maps another group's fragments.  Its arrays are
+    staged as copies here, as a transfer to a device makes them."""
+    put = jsh._put
+    monkeypatch.setattr(jsh, "_put", lambda arr, sharding: put(np.array(arr, copy=True), sharding))
     q0, q1 = panel["queries"]
     batch = [
         [_non_ascii(c) for c in q0],
