@@ -70,8 +70,11 @@ result:
     bitwise (sketch, sizes, overflow flag), on CUDA tensors: the edge
     cases of `WINNOW_CASES` (palindromes, runs of N and other bytes, the
     window-0 quirk, an overflow, k not a multiple of 4, protein at w 1,
-    one fragment, no window, a length past shared memory: the scratch
-    variant) and ``main``, the all-vs-all's shape (4096 fragments of
+    one fragment, no window, a length past shared memory: the long
+    route's scratch variant; the tile route's last position and one past
+    it: the long route in shared memory; record counts on both sides of
+    the register sort's 512; a warp's positions and one more at w 33),
+    each on the route it names, and ``main``, the all-vs-all's shape (4096 fragments of
     3000 bytes, k 16, w 24, pad 4); and, captured from the path, ``real``
     (phase 4's first group) and ``ava`` (the all-vs-all's first group).
     ``main``, ``real`` and ``ava`` with the kernel's and the plain
@@ -84,13 +87,16 @@ result:
     tensors: the synthetic cases of `L1_CASES` (``main`` at the
     all-vs-all's shape, minimum hits past 4 with a frequency threshold,
     the hit axis cut at T, an interval overflow, fragments and a batch
-    without hits, sketch sizes 0 and past S, one fragment, and a fragment
-    past shared memory: the scratch variant), an empty index (U = M = 0,
-    where the plain version cannot run: nothing found); and, captured
-    from the path, ``real`` (phase 4's first group) and ``ava`` (the
-    all-vs-all's first group).  ``main``, ``trunc``, ``scratch``,
+    without hits, sketch sizes 0 and past S, one fragment, a fragment
+    past shared memory: the scratch variant, and fragments on both sides
+    of the register merge sort's 1024 and 2048 hits), an empty index
+    (U = M = 0, where the plain version cannot run: nothing found); and,
+    captured from the path, ``real`` (phase 4's first group) and ``ava``
+    (the all-vs-all's first group).  ``main``, ``trunc``, ``scratch``,
     ``real`` and ``ava`` with the kernels' and the plain version's times,
-    the kernels alone in device time and their bound (`l1_work`).
+    the kernels alone in device time and their bound (`l1_work`), the
+    call's device time split by kernel (probe, ``cumsum``, intervals,
+    fill) and the 32-byte sectors it touches (`l1_sectors`).
 
 14. (run after phase 13) the L2 sweep's chunk plan and merge
     (``csrc/l2_sweep.cu``: ``l2_plan``, a count pass, a ``torch.cumsum``
@@ -181,19 +187,27 @@ ESCALATE_BUDGETS = dict(hmax=32, ivmax=1, t_chunks=4, smax=128)
 # phase 10: the host engine's check of g0 and g4 keeps g0 alone when the
 # two would take longer than this
 ORACLE_SECONDS = 90.0
-# phase 12: the kernel's working store is about 11 bytes a position, so a
-# fragment this long passes the card's 227 KB of opt-in shared memory
+# phase 12: the long route's working store is about 11 bytes a position,
+# so a fragment this long passes the card's 227 KB of opt-in shared memory
 WINNOW_SCRATCH_LENGTH = 30_000
+# the tile route serves fragments of at most 3072 k-mer positions (256
+# threads x 12), 384 a warp, and sorts up to 512 records in registers
+WINNOW_TILE_POSITIONS = 3072
 WINNOW_CASES = (
     "nucl_edges", "all_bytes", "overflow", "k15", "k18", "k5", "protein_w1",
-    "one_fragment", "wide_window", "no_window", "scratch",
+    "one_fragment", "wide_window", "no_window", "scratch", "tile_full", "tile_past",
+    "sort_edge", "warp_edge",
 )
 # phase 13: the L1 kernels' synthetic cases (`l1_case`); a fragment with
 # this many hits passes the card's opt-in shared memory (~57K int32 slots)
 L1_SCRATCH_HITS = 75_000
+# the intervals kernel sorts up to 1024 hits with 4 a thread, up to 2048
+# with 8, more in a bitonic network: `sort_edges` has fragments of these
+# hits, each of one or a few long rows
+L1_SORT_EDGE_HITS = (1024, 1025, 2048, 2049, 1023, 1203)
 L1_CASES = (
     "main", "m_high", "trunc", "ovf_iv", "empty", "all_empty", "s_zero", "one_fragment",
-    "scratch",
+    "scratch", "sort_edges",
 )
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 _NUCL = np.frombuffer(b"ACGTN", np.uint8)
@@ -409,6 +423,16 @@ def winnow_case(name: str):
         frags = _frag_rows(rng, _NUCL, 2, WINNOW_SCRATCH_LENGTH)
         frags[0, :5000] = ord("A")
         return frags, 16, 24, WINNOW_SCRATCH_LENGTH, False, 4096
+    if name in ("tile_full", "tile_past"):  # the tile's last position, and one past it
+        length = WINNOW_TILE_POSITIONS + 15 + (name == "tile_past")
+        return _edge_rows(rng, length), 16, 24, length, False, 512
+    if name == "sort_edge":  # 439-565 records: both sides of the register sort's 512
+        frags = _frag_rows(rng, _ACGT, 8, 3000)
+        for j in range(4):
+            frags[4 + j, 100 : 100 + 150 * (j + 1)] = ord("N")
+        return frags, 16, 10, 3000, False, 1024
+    if name == "warp_edge":  # 385 positions: a warp's 384 and one; w past a warp
+        return _edge_rows(rng, 399), 15, 33, 399, False, 128
     raise KeyError(name)
 
 
@@ -503,6 +527,85 @@ def l1_work(args) -> dict:
     )
 
 
+def device_split(fn, args, reps: int) -> dict:
+    """Device ms per call of each device kernel ``fn(*args)`` launches,
+    by name, from a ``torch.profiler`` trace of ``reps`` calls."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        split = Counter()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                split[e.key[:96]] += e.self_device_time_total / 1e3 / reps
+        if sum(split.values()) > 0:
+            return split
+    raise RuntimeError("torch.profiler recorded no device time in 3 traces")
+
+
+def kernel_name(key: str) -> str:
+    """A device kernel's function name from its profiler key:
+    ``void (anonymous namespace)::l1_probe_kernel(long long const*, ...``
+    gives ``l1_probe_kernel``, ``void at_cuda_detail::cub::DeviceScanKernel<...``
+    ``DeviceScanKernel``."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for stop in "<(":
+        name = name.split(stop)[0]
+    return name.split("::")[-1]
+
+
+def l1_sectors(args) -> dict:
+    """The 32-byte sectors one ``l1_candidates(*args)`` call touches, a
+    diagnostic beside `l1_work`'s byte bound: every read of the index is
+    scattered over far more than the L2 holds, so each costs a sector.
+    Both patterns count each live probe's bucket bounds, row length and
+    row start (3), each found row's postings (the sectors they span), the
+    sketch read and the outputs written.  ``search``: a binary search of
+    one sector a step (the first design's probe); ``window``: the 16-entry window
+    around the interpolated place (the sectors it spans; when it does not
+    bracket the hash, a search of the rest of the bucket), or the
+    search where the bucket is deeper than ``steps`` halvings reach."""
+    import torch
+
+    from pyfastani_tpu_torch._common import i32_to_hash
+
+    q, s, uniq, row_start, row_len, _, thr, _, bucket, _, ivmax, _, steps, _ = args
+    F, S = q.shape
+    n, depth = l1_hits(args)
+    live = torch.arange(S, device=q.device)[None, :] < s[:, None]
+    base = 3 * int(depth.numel()) + (F * S * 8 + 31) // 32 + (F * ivmax * 9 + 31) // 32
+    U = uniq.shape[0]
+    window = int(depth.sum())
+    if U:
+        h = i32_to_hash(uniq)
+        r = torch.searchsorted(h, q).clamp(max=U - 1)
+        found = live & (h[r] == q) & (row_len[r].long() < thr)
+        a = row_start[r][found].long() * 4
+        b = a + row_len[r][found].long() * 4
+        base += int(((b + 31) // 32 - a // 32).sum())
+        bits = int(bucket.shape[0] - 1).bit_length() - 1
+        ql = q[live]
+        lo, hi = bucket[ql >> (32 - bits)].long(), bucket[(ql >> (32 - bits)) + 1].long()
+        g = lo + (((ql & ((1 << (32 - bits)) - 1)) * (hi - lo)) >> (32 - bits))
+        wa = torch.maximum(lo, torch.minimum(g - 6, hi - 16)).clamp(min=0) & ~3
+        wa_lo, w_hi = torch.maximum(wa, lo), torch.minimum(wa + 16, hi)
+        span = ((4 * w_hi + 31) // 32 - (4 * wa_lo) // 32).clamp(min=0)
+        lb = torch.searchsorted(h, ql)
+        outside = (lb < wa_lo) | (lb > w_hi)
+        deep = (hi - lo) >> steps != 0
+        window = int(torch.where(deep, depth, span + torch.where(outside, depth, 0)).sum())
+    return dict(search=base + int(depth.sum()), window=base + window)
+
+
 def _winnow_err(got, want) -> int:
     """The largest absolute difference of sketch and sizes (0 when equal);
     raises when the flags, shapes or types differ."""
@@ -556,6 +659,17 @@ def check_winnow(name: str, args, gpu: str, timed: bool = True) -> dict:
     )
 
 
+def winnow_route(lib, device, length: int, k: int, w: int) -> str:
+    """The winnow kernel's route for fragments of ``length`` bytes at
+    ``(k, w)``: ``tile``, ``long`` (its store in shared memory) or
+    ``long, scratch``."""
+    from pyfastani_tpu_torch.ops import fragments
+
+    if lib.winnow_fragments_tile_route(length, k, w):
+        return "tile"
+    return "long, scratch" if fragments._store_bytes(device.index, length, k, w) else "long"
+
+
 def phase_winnow(device, gpu: str) -> None:
     """Phase 12's synthetic cases: every edge case, then ``main``."""
     import torch
@@ -565,11 +679,12 @@ def phase_winnow(device, gpu: str) -> None:
     lib = load_library()
     for name in WINNOW_CASES:
         frags, k, w, length, protein, kc = winnow_case(name)
-        scratch = lib.winnow_fragments_scratch_bytes(device.index, length, k, w, frags.shape[0])
-        if (scratch > 0) != (name == "scratch"):
-            raise AssertionError(f"winnow case {name}: {scratch} bytes of scratch")
+        route = winnow_route(lib, device, length, k, w)
+        if (route == "long, scratch") != (name == "scratch") or (
+                route == "long") != (name == "tile_past"):
+            raise AssertionError(f"winnow case {name}: the {route} route")
         args = (torch.from_numpy(frags).to(device), k, w, length, protein, kc)
-        check_winnow(f"{name}{' (the scratch variant)' if scratch else ''}", args, gpu, timed=False)
+        check_winnow(f"{name} (the {route} route)", args, gpu, timed=False)
     main = _frag_rows(np.random.default_rng(12), _ACGT, 4096, 3000)
     check_winnow("main (the all-vs-all's shape)",
                  (torch.from_numpy(main).to(device), 16, 24, 3000, False, 512), gpu)
@@ -595,7 +710,9 @@ def l1_case(name: str):
     more intervals than ``ivmax`` (``ovf_iv``), fragments without hits
     (``empty``) or a batch without any (``all_empty``), sketches of size
     0 and past S (``s_zero``), ``F = 1`` (``one_fragment``), and a
-    fragment of `L1_SCRATCH_HITS` hits (``scratch``)."""
+    fragment of `L1_SCRATCH_HITS` hits (``scratch``), and fragments of
+    `L1_SORT_EDGE_HITS` hits on both sides of each of the intervals
+    kernel's sort capacities (``sort_edges``)."""
     rng = np.random.default_rng(sum(name.encode()) + 13)
     l, S, F, hmax, ivmax, thr = 3000, 384, 48, 1024, 32, 2**31 - 1
     n_contigs, contig_len = 8, 500_000
@@ -610,6 +727,8 @@ def l1_case(name: str):
         F = 1
     elif name == "scratch":
         F, hmax = 4, 24_000
+    elif name == "sort_edges":
+        F, hmax = len(L1_SORT_EDGE_HITS), 3000
     # the store: a minimizer every 1-23 bases, contigs l + 8 apart
     gap = l + 8
     per = contig_len // 12
@@ -627,6 +746,19 @@ def l1_case(name: str):
         rep_pos = np.arange(per_row) * 37 + 1000
         gpos = np.concatenate([gpos] + [rep_pos + j for j in range(3)])
         hashes = np.concatenate([hashes] + [np.full(per_row, h, np.uint32) for h in repeats])
+    # sort_edges: rows of these lengths, tandem repeats; fragment f's
+    # sketch is the rows rows_of[f] and a few absent hashes
+    rows_of = ((0,), (0, 1), (2,), (2, 1), (3,), (4, 5, 6, 1))
+    if name == "sort_edges":
+        lengths = (1024, 1, 2048, 1023, 500, 700, 2)
+        repeats = pool[~np.isin(pool, hashes)][: len(lengths)]
+        runs = []
+        for j, n in enumerate(lengths):  # every ~300th gap opens a new interval
+            gaps = np.where(rng.random(n) < 1 / 300, 5000, rng.integers(1, 40, size=n))
+            runs.append(1000 + j + np.cumsum(gaps))
+        gpos = np.concatenate([gpos] + runs)
+        hashes = np.concatenate(
+            [hashes] + [np.full(n, h, np.uint32) for n, h in zip(lengths, repeats)])
     order = np.lexsort((gpos, hashes))
     post_gpos = gpos[order].astype(np.int32)
     uniq, row_start, row_len = np.unique(hashes[order], return_index=True, return_counts=True)
@@ -644,6 +776,8 @@ def l1_case(name: str):
     for f in range(F):
         if name == "all_empty" or (name == "empty" and f % 3 == 1):
             sk = absent[f * 200 : f * 200 + 200]
+        elif name == "sort_edges":
+            sk = np.concatenate([repeats[list(rows_of[f])], absent[f * 200 : f * 200 + 9]])
         elif name == "s_zero" and f % 4 == 0:
             sk = absent[:0]
         else:
@@ -714,7 +848,6 @@ def check_l1(name: str, args, gpu: str, timed: bool = True) -> dict:
     and the bound."""
     import torch
 
-    from pyfastani_tpu_torch._build import load_library
     from pyfastani_tpu_torch.ops import l1
 
     got = l1.l1_candidates(*args)
@@ -725,7 +858,7 @@ def check_l1(name: str, args, gpu: str, timed: bool = True) -> dict:
         raise AssertionError(f"l1_candidates kernels differ from the plain version ({name}): {err}")
     q, hmax, ivmax = args[0], args[9], args[10]
     n, _ = l1_hits(args)
-    cap = load_library().l1_intervals_capacity(q.device.index, hmax)
+    cap = l1._shared_slots(q.device.index, hmax, q.shape[1])
     head = (f"[13] l1_candidates {name}: F={q.shape[0]}, S={q.shape[1]}, hmax={hmax}, "
             f"ivmax={ivmax}, m_values={args[13]}: {int(n.sum())} hits (at most "
             f"{int(n.max()) if n.numel() else 0} a fragment, {int((n > cap).sum())} fragment(s) "
@@ -740,11 +873,17 @@ def check_l1(name: str, args, gpu: str, timed: bool = True) -> dict:
     plain_b = time_ms(l1.l1_candidates_reference, args)
     alone = kernel_device_ms(l1.l1_candidates, args, "l1_")
     work = l1_work(args)
+    split = device_split(l1.l1_candidates, args, 20)
+    sectors = l1_sectors(args)
     log(
         f"{head}; kernels {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
         f"call, kernels alone {alone:.4f} ms of device time; bound {work['bound_ms']:.4f} ms by "
         f"{work['bound_by']} ({work['bytes']} B = {work['bytes_ms']:.4f} ms, {work['ops']} int32 "
-        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
+        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached; "
+        f"device ms a call by kernel: "
+        f"{', '.join(f'{kernel_name(name)} {ms:.4f}' for name, ms in split.most_common())}"
+        f"; 32-byte sectors {sectors['window']} = {1e3 * 32 * sectors['window'] / HBM_BYTES_PER_S:.4f}"
+        f" ms at the bytes rate ({sectors['search']} with a binary-search probe) ({gpu})"
     )
     return dict(
         max_abs_err=err, ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),

@@ -114,9 +114,10 @@ def load_library() -> ctypes.CDLL:
     lib.l2_chunks_launch.restype = i32
     lib.l2_chunks_launch_scratch.argtypes = operands + [ptr, i64, ptr]  # scratch, words, stream
     lib.l2_chunks_launch_scratch.restype = i32
-    # device, length, k, w, F
-    lib.winnow_fragments_scratch_bytes.argtypes = [i32, i64, i32, i32, i32]
-    lib.winnow_fragments_scratch_bytes.restype = i64
+    lib.winnow_fragments_store_bytes.argtypes = [i32, i64, i32, i32]  # device, length, k, w
+    lib.winnow_fragments_store_bytes.restype = i64
+    lib.winnow_fragments_tile_route.argtypes = [i64, i32, i32]  # length, k, w
+    lib.winnow_fragments_tile_route.restype = i32
     lib.winnow_fragments_launch.argtypes = [
         ptr, i64, i32, i64, i32, i32, i32, i32, i64,  # frags, stride, F, length, k, w, protein, kc, wout
         ptr, ptr, ptr, ptr,  # comp, q, s, ovf
@@ -130,7 +131,7 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr,  # probe_len, probe_start, counts, stream
     ]
     lib.l1_probe_launch.restype = i32
-    lib.l1_intervals_capacity.argtypes = [i32, i64]  # device, hmax
+    lib.l1_intervals_capacity.argtypes = [i32, i64, i32]  # device, hmax, S
     lib.l1_intervals_capacity.restype = i64
     lib.l1_intervals_launch.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32,  # probe_len, probe_start, counts, ends, F, S

@@ -6,12 +6,16 @@ Port of ``pyfastani_tpu/ops/fragments.py``.  `winnow_fragments`
 winnowed, then each fragment's recorded minimizer hashes are sorted and
 compacted to its sketch -- the sorted unique hashes, ``UMAX``-padded.  For
 CUDA tensors it launches the hand-written CUDA kernel
-(``csrc/winnow_fragments.cu``: one block a fragment, a fragment too long
-for shared memory in its scratch variant), for CPU tensors it takes the
-plain version, `winnow_fragments_reference`, which winnows the batch with
-the fragment axis as the leading dimension (where the JAX package
-``vmap``s); any other device raises.  ``launches`` counts kernel launches
-and ``reference_calls`` runs of the plain version.
+(``csrc/winnow_fragments.cu``: one block a fragment; up to 3072 k-mer
+positions the tile route, keys in registers and the window minimum as
+prefix and suffix minima over blocks of ``w``; a longer fragment the long
+route, its store in shared memory or, past it, in global scratch), for
+CPU tensors it takes the plain version, `winnow_fragments_reference`,
+which winnows the batch with the fragment axis as the leading dimension
+(where the JAX package ``vmap``s); any other device raises.  ``launches``
+counts kernel launches and ``reference_calls`` runs of the plain version.
+`winnow_fragments_blocked` is the plain torch twin of the kernel's tile
+route (the blocked window minimum); nothing on the card path calls it.
 
 `winnow_long_sequence`: a whole contig is winnowed on the device in
 fixed-size chunks of windows with the boundary state carried between
@@ -22,18 +26,43 @@ port and the JAX package agree bitwise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .._common import UMAX
 from ._cuda import cuda_device, current_stream, ptr, raise_on
-from .winnow import _complement_lut, nucl_canonical, prot_hashes, winnow, winnow_chunk
+from .winnow import (
+    _complement_lut, nucl_canonical, prot_hashes, record_rule, winnow, winnow_chunk,
+)
 
-__all__ = ["winnow_fragments", "winnow_fragments_reference", "winnow_long_sequence"]
+__all__ = [
+    "winnow_fragments", "winnow_fragments_blocked", "winnow_fragments_reference",
+    "winnow_long_sequence",
+]
 
 _CHUNK_WINDOWS = 1 << 21  # windows winnowed per chunk
+_SCRATCH_BUDGET = 1 << 30  # global scratch of the long route's grid, at most
 
 launches = 0
 reference_calls = 0
+
+
+@functools.cache
+def _store_bytes(device: int, length: int, k: int, w: int) -> int:
+    """Global scratch bytes a block of the kernel's long route needs at
+    ``(length, k, w)`` on ``device`` (0: none), asked once."""
+    from .._build import load_library
+
+    need = load_library().winnow_fragments_store_bytes(device, length, k, w)
+    if need < 0:
+        raise RuntimeError("winnow_fragments: the CUDA device could not be queried")
+    return need
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def winnow_fragments(
@@ -80,13 +109,15 @@ def winnow_fragments(
         frags = frags.contiguous()
     comp = _complement_lut(dev)
     stream = current_stream(dev)
+    # a fragment too long for shared memory takes the long route's scratch
+    # variant: a persistent grid of at most two blocks an SM, each with its
+    # own store in a global scratch buffer from the caching allocator
+    store = _store_bytes(dev.index, length, k, w)
+    need, scratch = 0, None
+    if store:
+        need = store * max(1, min(F, 2 * _sm_count(dev.index), _SCRATCH_BUDGET // store))
+        scratch = torch.empty(need, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
-        # a fragment too long for shared memory takes the scratch variant,
-        # whose global scratch comes from the caching allocator
-        need = lib.winnow_fragments_scratch_bytes(dev.index, length, k, w, F)
-        if need < 0:
-            raise RuntimeError("winnow_fragments: the CUDA device could not be queried")
-        scratch = torch.empty(need, dtype=torch.uint8, device=dev) if need else None
         raise_on("winnow_fragments", lib.winnow_fragments_launch(
             ptr(frags), frags.stride(0), F, length, k, w, int(protein), kc, wout, ptr(comp),
             ptr(q_sorted), ptr(s), ptr(ovf), ptr(scratch) if need else None, need, stream,
@@ -107,7 +138,13 @@ def winnow_fragments_reference(
     hashes = prot_hashes if protein else nucl_canonical
     canon, valid = hashes(frags, length, k, n_pos)
     record, win_hash = winnow(canon, valid, w)
+    return _sketch(record, win_hash, kc)
 
+
+def _sketch(record, win_hash, kc: int):
+    """``(rec_ovf, q_sorted, s)`` from the windows' record flags and
+    hashes: the recorded hashes sorted twice, around a first-occurrence
+    mask."""
     masked = torch.where(record, win_hash, UMAX)
     s_sorted = torch.sort(masked, dim=1).values
     # first occurrence of each hash; the UMAX padding collapses into the tail
@@ -118,6 +155,47 @@ def winnow_fragments_reference(
     s = first.sum(dim=1).to(torch.int32)
     rec_ovf = (s > kc).any()
     return rec_ovf, q_sorted[:, : min(kc, q_sorted.shape[1])], s
+
+
+_POS = (1 << 31) - 1  # positions below 2^31: the key's low bits are _POS - pos
+
+
+def _blocked_window_min(canon: torch.Tensor, valid: torch.Tensor, w: int):
+    """``(hash, pos)`` minimum of every ``w``-wide window (ties to the
+    later position), as the kernel's tile route computes it: one key a
+    position, ``hash << 31 | (2^31 - 1 - pos)`` (an invalid position is
+    ``(UMAX, 0)``), its prefix and suffix minima over blocks of ``w``
+    (van Herk / Gil-Werman), and window ``p`` the smaller of
+    ``suffix[p]`` and ``prefix[p + w - 1]``."""
+    B, N = canon.shape
+    pos = torch.arange(N, device=canon.device)
+    top = (UMAX << 31) | _POS
+    key = torch.where(valid, (canon << 31) | (_POS - pos), top)
+    nb = -(-N // w)
+    pad = torch.full((B, nb * w - N), top, dtype=torch.int64, device=canon.device)
+    blocks = torch.cat([key, pad], dim=1).view(B, nb, w)
+    prefix = torch.cummin(blocks, dim=2).values.reshape(B, -1)[:, :N]
+    suffix = torch.cummin(blocks.flip(2), dim=2).values.flip(2).reshape(B, -1)[:, :N]
+    P = N - w + 1
+    m = torch.minimum(suffix[:, :P], prefix[:, w - 1 : w - 1 + P])
+    return m >> 31, _POS - (m & _POS)
+
+
+def winnow_fragments_blocked(
+    frags: torch.Tensor, k: int, w: int, length: int, protein: bool, kc: int
+):
+    """The plain torch twin of the kernel's tile route (same arguments
+    and result as `winnow_fragments_reference`): the window minimum by
+    `_blocked_window_min` in place of log doubling, then the same record
+    rule and sketch.  Held against the plain version and the JAX package
+    by the CPU tests; nothing on the card path calls it."""
+    n_pos = length - k + 1
+    hashes = prot_hashes if protein else nucl_canonical
+    canon, valid = hashes(frags, length, k, n_pos)
+    if n_pos - w + 1 <= 0:
+        return _sketch(*winnow(canon, valid, w), kc)
+    win_h, win_p = _blocked_window_min(canon, valid, w)
+    return _sketch(record_rule(win_h, win_p, valid, w), win_h, kc)
 
 
 def _compact(record, rank, values, cap: int):

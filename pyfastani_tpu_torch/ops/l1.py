@@ -13,9 +13,11 @@ are laid out with at least ``l + 8`` of dead space between them, so "same
 contig and within ``l``" is a single difference of global positions.
 
 `l1_candidates` launches two hand-written CUDA kernels for CUDA tensors
-(``csrc/l1_candidates.cu``: the probe, then one block a fragment for its
-hits, sort, candidates and merged intervals, with a fragment past the
-block's shared memory in a global scratch slice), and takes the plain
+(``csrc/l1_candidates.cu``: the probe, an interpolated window of the
+bucket's row hashes in place of most of the binary search, then one
+block a fragment for its hits, a merge sort in registers up to 2048
+hits, candidates and merged intervals, with a fragment past the block's
+shared memory in a global scratch slice), and takes the plain
 version, `l1_candidates_reference`, for CPU tensors; any other device
 raises.  ``launches`` counts kernel-route calls (one a call of the two
 kernels) and ``reference_calls`` runs of the plain version.  In the plain version the TPU-shaped pieces
@@ -34,21 +36,24 @@ import torch
 from .._common import GBIG, i32_to_hash
 from ._cuda import check, cuda_device, current_stream, ptr, raise_on
 
-__all__ = ["l1_candidates", "l1_candidates_reference"]
+__all__ = ["l1_candidates", "l1_candidates_reference", "l1_candidates_windowed"]
 
 launches = 0
 reference_calls = 0
 
 
 @functools.cache
-def _shared_slots(device: int, hmax: int) -> int:
+def _shared_slots(device: int, hmax: int, S: int) -> int:
     """Hit slots of the intervals kernel's shared buffer on ``device`` at
-    budget ``hmax`` (``l1_intervals_capacity``), asked once."""
+    budget ``hmax`` for ``S`` probes a fragment (``l1_intervals_capacity``),
+    asked once."""
     from .._build import load_library
 
-    cap = load_library().l1_intervals_capacity(device, hmax)
+    cap = load_library().l1_intervals_capacity(device, hmax, S)
     if cap < 0:
         raise RuntimeError("l1_candidates: the CUDA device could not be queried")
+    if cap < 1:
+        raise ValueError(f"l1_candidates: {S} probes a fragment pass the card's shared memory")
     return cap
 
 
@@ -154,7 +159,7 @@ def l1_candidates(
             ptr(probe_len), ptr(probe_start), ptr(counts), stream,
         ))
         ends = torch.cumsum(counts, dim=0)  # each fragment's slots end at min(ends[f], T)
-        cap = _shared_slots(dev.index, hmax)
+        cap = _shared_slots(dev.index, hmax, S)
         # a fragment past the block's shared memory sorts in its own slots
         scratch = torch.empty(max(T, 1), dtype=torch.int32, device=dev)
         raise_on("l1_intervals", lib.l1_intervals_launch(
@@ -188,6 +193,92 @@ def l1_candidates_reference(
     result): whole-array ops over the flat ``F * hmax`` hit axis."""
     global reference_calls
     reference_calls += 1
+    return _l1_candidates(
+        _probe_rows, q_sorted, s_sizes, uniq_hash, row_start, row_len, post_gpos,
+        freq_threshold, min_hits_table, hash_bucket, hmax, ivmax, l, bucket_steps, m_values,
+    )
+
+
+def l1_candidates_windowed(*args):
+    """The plain torch twin of the kernels' probe (same arguments and
+    result as `l1_candidates_reference`): each probe's row found as
+    `_probe_rows_window` finds it.  Held against the plain version and the
+    JAX package by the CPU tests; nothing on the card path calls it."""
+    return _l1_candidates(_probe_rows_window, *args)
+
+
+def _probe_rows(q_sorted, uniq_hash, hash_bucket, bucket_steps: int):
+    """Each probe's row: ``bucket_steps`` steps of binary search inside its
+    hash-prefix bucket (the plain version's probe)."""
+    U = uniq_hash.shape[0]
+    bits = int(hash_bucket.shape[0] - 1).bit_length() - 1
+    b = q_sorted >> (32 - bits)
+    lo = hash_bucket[b].to(torch.int64)
+    hi = hash_bucket[b + 1].to(torch.int64)
+    for _ in range(bucket_steps):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        go_right = i32_to_hash(uniq_hash[mid.clamp(0, max(U - 1, 0))]) < q_sorted
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
+_WIN = 16  # row hashes the kernel reads around the interpolated place
+
+
+def _probe_rows_window(q_sorted, uniq_hash, hash_bucket, bucket_steps: int):
+    """Each probe's row as the kernels' probe finds it (``find_row`` of
+    ``csrc/l1_candidates.cu``): the place of the hash interpolated inside
+    its bucket, the `_WIN` row hashes from the 4-aligned index 6 before
+    it, the lower bound inside that window when the window brackets the
+    hash, else in the part of the bucket it names; a bucket that
+    ``bucket_steps`` halvings do not exhaust takes `_probe_rows`."""
+    i64 = torch.int64
+    U = uniq_hash.shape[0]
+    top = max(U - 1, 0)
+    h = i32_to_hash(uniq_hash)
+    bits = int(hash_bucket.shape[0] - 1).bit_length() - 1
+    sb = 32 - bits
+    b = q_sorted >> sb
+    lo = hash_bucket[b].to(i64)
+    hi = hash_bucket[b + 1].to(i64)
+    g = lo + (((q_sorted & ((1 << sb) - 1)) * (hi - lo)) >> sb)
+    ws = torch.maximum(lo, torch.minimum(g - 6, hi - _WIN))
+    wa = ws.clamp(min=0) & ~3
+    a = torch.maximum(wa, lo)
+    e = torch.minimum(wa + _WIN, hi)
+    idx = wa[..., None] + torch.arange(_WIN, device=q_sorted.device)
+    inside = (idx >= a[..., None]) & (idx < e[..., None])
+    below = (inside & (h[idx.clamp(0, top)] < q_sorted[..., None])).sum(-1)
+    first = h[a.clamp(0, top)]
+    last = h[(e - 1).clamp(0, top)]
+    bound = torch.searchsorted(h, q_sorted)  # the lower bound over all rows
+    rows = a + below
+    rows = torch.where((e < hi) & (last < q_sorted), bound.clamp(e, hi), rows)
+    rows = torch.where((a > lo) & (first >= q_sorted), bound.clamp(lo, a), rows)
+    rows = torch.where(lo >= hi, lo, rows)
+    deep = (hi - lo) >> bucket_steps != 0
+    return torch.where(deep, _probe_rows(q_sorted, uniq_hash, hash_bucket, bucket_steps), rows)
+
+
+def _l1_candidates(
+    probe,
+    q_sorted: torch.Tensor,
+    s_sizes: torch.Tensor,
+    uniq_hash: torch.Tensor,
+    row_start: torch.Tensor,
+    row_len: torch.Tensor,
+    post_gpos: torch.Tensor,
+    freq_threshold: int,
+    min_hits_table: torch.Tensor,
+    hash_bucket: torch.Tensor,
+    hmax: int,
+    ivmax: int,
+    l: int,
+    bucket_steps: int,
+    m_values: tuple,
+):
     dev = q_sorted.device
     F, S = q_sorted.shape
     M = post_gpos.shape[0]
@@ -195,18 +286,8 @@ def l1_candidates_reference(
     T = F * hmax
     i64 = torch.int64
 
-    # --- probe the CSR index: binary search inside the hash-prefix bucket --
-    bits = int(hash_bucket.shape[0] - 1).bit_length() - 1
-    b = q_sorted >> (32 - bits)
-    lo = hash_bucket[b].to(i64)
-    hi = hash_bucket[b + 1].to(i64)
-    for _ in range(bucket_steps):
-        active = lo < hi
-        mid = (lo + hi) // 2
-        go_right = i32_to_hash(uniq_hash[mid.clamp(0, max(U - 1, 0))]) < q_sorted
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    rows = lo
+    # --- probe the CSR index inside the hash-prefix bucket -----------------
+    rows = probe(q_sorted, uniq_hash, hash_bucket, bucket_steps)
     rows_c = rows.clamp(0, max(U - 1, 0))
     i_idx = torch.arange(S, device=dev)[None, :]
     found = (

@@ -22,7 +22,7 @@ from .._common import UMAX
 from .codec import complement_table
 from .murmur3 import kmer_hashes
 
-__all__ = ["nucl_canonical", "prot_hashes", "winnow", "winnow_chunk"]
+__all__ = ["nucl_canonical", "prot_hashes", "record_rule", "winnow", "winnow_chunk"]
 
 
 @functools.cache
@@ -124,7 +124,16 @@ def winnow(canon: torch.Tensor, valid: torch.Tensor, w: int):
         )
 
     win_h, win_p = _window_min(canon, valid, torch.arange(N, device=dev), w)
+    return record_rule(win_h, win_p, valid, w), win_h
 
+
+def record_rule(win_h: torch.Tensor, win_p: torch.Tensor, valid: torch.Tensor, w: int):
+    """Which windows record, from each window's chosen ``(hash, pos)``
+    (``(B, P)``) and the positions' validity (``(B, N)``): `winnow`'s
+    rule, the window-0 quirk included."""
+    B, N = valid.shape
+    P = N - w + 1
+    dev = valid.device
     # window p is evaluated iff its last k-mer (p + w - 1) is valid
     evaluated = valid[:, w - 1 : w - 1 + P]
 
@@ -150,7 +159,7 @@ def winnow(canon: torch.Tensor, valid: torch.Tensor, w: int):
     same_h0 = (~evaluated) | (win_h == win_h[:, :1])
     prefix_ok = torch.cummin(same_h0.to(torch.int32), dim=1).values.bool()
     suppress = first_is_zero & (idx > 0) & prefix_ok
-    return is_new & ~suppress, win_h
+    return is_new & ~suppress
 
 
 def winnow_chunk(canon, valid, w: int, carry, base: int, first_chunk: bool):

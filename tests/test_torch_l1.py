@@ -11,17 +11,31 @@ of the L1 kernels (``chip_smoke.l1_case``).
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
 import __graft_entry__
-from chip_smoke import L1_CASES, L1_SCRATCH_HITS, l1_case, l1_hits, l1_torch_args
+from chip_smoke import (
+    L1_CASES,
+    L1_SCRATCH_HITS,
+    L1_SORT_EDGE_HITS,
+    l1_case,
+    l1_hits,
+    l1_torch_args,
+)
 from pyfastani_tpu import Sketch, stats
 from pyfastani_tpu.ops.fragments import _winnow_fragments_impl
 from pyfastani_tpu.ops.l1 import l1_candidates_device
 from pyfastani_tpu_torch._common import bits_to_i32
 from pyfastani_tpu_torch.index import build_sharded_index
-from pyfastani_tpu_torch.ops.l1 import l1_candidates, l1_candidates_reference
+from pyfastani_tpu_torch.ops import l1 as tl1
+from pyfastani_tpu_torch.ops.l1 import (
+    l1_candidates,
+    l1_candidates_reference,
+    l1_candidates_windowed,
+)
 
 SMAX = 256
 
@@ -123,3 +137,92 @@ def test_l1_reference_matches_jax_on_kernel_cases(name):
         assert int(n.max()) >= L1_SCRATCH_HITS and bool(per_fragment[int(n.argmax())] > 0)
     elif name == "trunc":
         assert int(n.sum()) == q.shape[0] * hmax and bool(got[2].any())
+    elif name == "sort_edges":
+        assert tuple(n.tolist()) == L1_SORT_EDGE_HITS and bool((per_fragment > 1).all())
+
+
+def _jax_l1(case):
+    q, s, uniq, rs, rl, post, thr, table, hb, hmax, ivmax, l, steps, m_values = case
+    return l1_candidates_device(
+        jnp.asarray(q.astype(np.uint32)), jnp.asarray(s), jnp.asarray(uniq), jnp.asarray(rs),
+        jnp.asarray(rl), jnp.asarray(post), jnp.int32(thr), jnp.asarray(table),
+        jnp.asarray(np.stack([hb[:-1], hb[1:]], axis=-1)), hmax, ivmax, l, steps, m_values,
+    )
+
+
+def _same_l1(got, want, what):
+    for label, w, g in zip(["iv_g0", "iv_g1", "iv_valid", "ovf_hits", "ovf_iv"], want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{what} {label}")
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_windowed_twin_matches_reference_and_jax_on_kernel_cases(name):
+    """The kernels' probe in plain torch (`l1_candidates_windowed`: an
+    interpolated window of the bucket in place of the binary search)
+    against the plain version and the JAX package, bitwise, on the
+    kernels' cases; its rows equal the binary search's on every live
+    probe."""
+    case = l1_case(name)
+    args = l1_torch_args(case, "cpu")
+    got = l1_candidates_windowed(*args)
+    _same_l1(got, l1_candidates_reference(*args), name)
+    _same_l1(got, _jax_l1(case), name)
+    q, s, uniq, hb, steps = args[0], args[1], args[2], args[8], args[12]
+    live = torch.arange(q.shape[1])[None, :] < s[:, None]
+    rows = tl1._probe_rows_window(q, uniq, hb, steps)
+    assert torch.equal(rows[live], tl1._probe_rows(q, uniq, hb, steps)[live]), name
+
+
+def _bucket_table(uniq: np.ndarray, bits: int):
+    edges = np.arange((1 << bits) + 1, dtype=np.uint64) << np.uint64(32 - bits)
+    bucket = np.searchsorted(uniq.astype(np.uint64), edges).astype(np.int32)
+    deepest = int(np.diff(bucket).max(initial=0))
+    return bucket, max(1, int(np.ceil(np.log2(deepest + 1))))
+
+
+@st.composite
+def _index(draw):
+    """Sorted unique row hashes crowded toward 0 (as minimizers' are),
+    a bucket table of 2-14 bits, a search depth that suffices or falls 1
+    or 2 short (the plain version's steps then decide), and probes:
+    present hashes, absent ones, 0 and 2^32 - 1."""
+    seed = draw(st.integers(0, 2**31 - 1))
+    rng = np.random.default_rng(seed)
+    n = draw(st.integers(1, 3000))
+    skew = draw(st.sampled_from([1.0, 3.0, 8.0]))
+    uniq = np.unique((rng.random(n) ** skew * (2**32 - 1)).astype(np.uint32))
+    bits = draw(st.integers(2, 14))
+    bucket, steps = _bucket_table(uniq, bits)
+    steps = max(1, steps - draw(st.sampled_from([0, 0, 1, 2])))
+    present = rng.choice(uniq, size=96)
+    absent = rng.integers(0, 2**32 - 1, size=96, dtype=np.uint64)
+    q = np.concatenate([present.astype(np.int64), absent.astype(np.int64), [0, 2**32 - 1]])
+    return torch.from_numpy(q[None, :]), uniq, torch.from_numpy(bucket), steps
+
+
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(_index())
+def test_window_probe_finds_the_binary_search_rows_on_drawn_indexes(index):
+    """`_probe_rows_window` (the kernels' probe) finds the rows of the
+    plain version's `steps`-step binary search on drawn indexes: buckets
+    shallower and deeper than the 16-hash window, and depths that do not
+    exhaust a bucket."""
+    q, uniq, bucket, steps = index
+    u32 = torch.from_numpy(bits_to_i32(uniq))
+    want = tl1._probe_rows(q, u32, bucket, steps)
+    assert torch.equal(tl1._probe_rows_window(q, u32, bucket, steps), want)
+
+
+@settings(max_examples=4, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(st.integers(3, 14), st.integers(0, 2))
+def test_windowed_twin_matches_jax_on_drawn_buckets(bits, short):
+    """The twin against the plain version and the JAX package on the
+    ``empty`` case's index re-bucketed at a drawn number of bits, with a
+    search depth that suffices or falls short."""
+    case = list(l1_case("empty"))
+    case[8], steps = _bucket_table(case[2], bits)
+    case[12] = max(1, steps - short)
+    args = l1_torch_args(case, "cpu")
+    got = l1_candidates_windowed(*args)
+    _same_l1(got, l1_candidates_reference(*args), (bits, short))
+    _same_l1(got, _jax_l1(case), (bits, short))

@@ -89,10 +89,10 @@ def _cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", L1_CASES)
 def test_cuda_kernels_match_reference(name):
-    lib = _cuda()
+    _cuda()
     args = l1_torch_args(l1_case(name), "cuda")
     n, _ = l1_hits(args)
-    cap = lib.l1_intervals_capacity(torch.cuda.current_device(), args[9])
+    cap = l1._shared_slots(torch.cuda.current_device(), args[9], args[0].shape[1])
     assert bool((n > cap).any()) == (name == "scratch")
     before = (l1.launches, l1.reference_calls)
     got = l1.l1_candidates(*args)
@@ -140,3 +140,25 @@ def test_cuda_kernels_refuse_wrong_types():
     bad[1] = args[1][:0]
     with pytest.raises(ValueError, match="s_sizes"):
         l1.l1_candidates(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,short", [(4, 0), (6, 2), (10, 0), (12, 1), (16, 0)])
+def test_cuda_probe_on_rebucketed_indexes(bits, short):
+    """The kernels' probe on the ``empty`` case's index re-bucketed at
+    ``bits`` bits, with a search depth ``short`` steps below what its
+    deepest bucket needs: buckets past the 16-hash window, and ones that
+    the plain version's ``steps`` halvings do not exhaust."""
+    import numpy as np
+
+    _cuda()
+    case = list(l1_case("empty"))
+    edges = np.arange((1 << bits) + 1, dtype=np.uint64) << np.uint64(32 - bits)
+    case[8] = np.searchsorted(case[2].astype(np.uint64), edges).astype(np.int32)
+    deepest = int(np.diff(case[8]).max(initial=0))
+    case[12] = max(1, int(np.ceil(np.log2(deepest + 1))) - short)
+    args = l1_torch_args(case, "cuda")
+    got = l1.l1_candidates(*args)
+    want = l1.l1_candidates_reference(*args)
+    torch.cuda.synchronize()
+    assert _l1_err(got, want) == 0

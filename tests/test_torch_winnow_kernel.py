@@ -5,8 +5,11 @@
 of ``N`` and bytes outside ACGT, a poly-A fragment and fragments that
 start on a repeated hash (the window-0 quirk), more unique hashes than
 ``kc`` (the overflow flag), ``k`` not a multiple of 4, protein at ``w`` 1,
-one fragment, a window wider than the fragment, and a length past the
-card's shared memory (the scratch variant).  ``tests/test_torch_winnow.py`` holds the plain version,
+one fragment, a window wider than the fragment, a length past the card's
+shared memory (the long route's scratch variant), the tile route's last
+position and one past it (the long route in shared memory), record
+counts on both sides of the tile route's register sort (512), and a
+warp's 384 positions and one more at ``w`` 33.  ``tests/test_torch_winnow.py`` holds the plain version,
 `winnow_fragments_reference`, against the JAX package on them; here the
 wrapper's dispatch is checked on the CPU, and the kernel against the plain
 version in a test that needs a card (marker ``cuda``).  Every output is an
@@ -22,6 +25,7 @@ import torch
 
 from chip_smoke import WINNOW_CASES as CASE_NAMES
 from chip_smoke import winnow_case as case
+from chip_smoke import winnow_route
 from pyfastani_tpu_torch.ops import fragments
 
 
@@ -83,8 +87,9 @@ def test_cuda_kernel_matches_reference(name):
     else:
         frags, k, w, length, protein, kc = case(name)
     t = torch.from_numpy(frags).cuda()
-    need = load_library().winnow_fragments_scratch_bytes(0, length, k, w, frags.shape[0])
-    assert (need > 0) == (name == "scratch")
+    route = winnow_route(load_library(), t.device, length, k, w)
+    assert (route == "long, scratch") == (name == "scratch")
+    assert (route == "long") == (name == "tile_past")
     before = (fragments.launches, fragments.reference_calls)
     got = fragments.winnow_fragments(t, k, w, length, protein, kc)
     assert (fragments.launches, fragments.reference_calls) == (before[0] + 1, before[1])
@@ -95,5 +100,30 @@ def test_cuda_kernel_matches_reference(name):
     wide = torch.zeros((frags.shape[0], frags.shape[1] + 3), dtype=torch.uint8, device="cuda")
     wide[:, 3:] = t
     got = fragments.winnow_fragments(wide[:, 3:], k, w, length, protein, kc)
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,n_pos,protein", [
+    (5, 1, 385, False), (15, 2, 384, False), (17, 31, 383, False), (21, 32, 769, False),
+    (16, 33, 3071, False), (18, 64, 3072, False), (16, 700, 701, False), (16, 700, 699, False),
+    (7, 1, 3072, True), (9, 40, 1000, True),
+])
+def test_cuda_kernel_on_tile_edges(k, w, n_pos, protein):
+    """The kernel against its plain version at the tile route's edges: w
+    from 1 to 64 and 700, k not a multiple of 4, positions at a warp's
+    (384) and the tile's (3072) multiples +-1, and one window short."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the winnow kernel is CUDA C++ with no CPU mode)")
+    length = n_pos + k - 1
+    rng = np.random.default_rng(k * 1000 + w)
+    alphabet = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX" if protein else b"ACGTN", np.uint8)
+    frags = np.zeros((5, length + 4), np.uint8)
+    frags[:, :length] = rng.choice(alphabet, size=(5, length))
+    frags[0, :length] = ord("A")
+    t = torch.from_numpy(frags).cuda()
+    got = fragments.winnow_fragments(t, k, w, length, protein, 700)
+    want = fragments.winnow_fragments_reference(t, k, w, length, protein, 700)
     torch.cuda.synchronize()
     _same(got, want)
