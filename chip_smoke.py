@@ -99,17 +99,20 @@ result:
     fill) and the 32-byte sectors it touches (`l1_sectors`).
 
 14. (run after phase 13) the L2 sweep's chunk plan and merge
-    (``csrc/l2_sweep.cu``: ``l2_plan``, a count pass, a ``torch.cumsum``
-    and a slot pass; ``l2_merge``) and the gate + CGI and the identity fold
+    (``csrc/l2_sweep.cu``: ``l2_plan``, the contig lookup and the plan
+    from the L1 stage's intervals in two launches tiled by intervals;
+    ``l2_merge``) and the gate + CGI and the identity fold
     (``csrc/cgi.cu``: ``cgi_bins``, ``fold_bins``) against their plain
-    torch versions under their contracts (`_plan_err`: both flags and
-    ``ends`` always, the chunk operands on the live slots, 0 past
-    them; `_merge_err`: every interval while no flag is raised;
+    torch versions under their contracts (`_plan_err`: both flags,
+    ``ends`` and the contigs always, the chunk operands on the live
+    slots, 0 past them; `_merge_err`: every interval while no flag is raised;
     `_cgi_err`: the bins bitwise, ``-inf`` included, while no flag is
     raised; `_fold_err`: every output), on CUDA tensors: the synthetic
     cases of `SWEEP_CASES` (``main`` at the all-vs-all's shape, more
     chunks than slots, ranges past their capacity, no valid interval, one
-    interval of ten chunks, chunks past their contig's end) and of
+    interval of ten chunks, chunks past their contig's end, intervals off
+    the plan's tile, chunk totals at and one past the slots, an interval
+    across the last slot, contigs past the shared-memory table) and of
     `CGI_CASES` (``main`` at the all-vs-all's shape, tied intervals, more
     intervals than a warp, two query genomes with padded rows, genomes of
     several contigs), the plan on an empty store (M = 0, where the plain
@@ -117,7 +120,7 @@ result:
     the path, ``real`` (phase 4's first group) and ``ava`` (the
     all-vs-all's first group).  ``main``, ``real`` and ``ava`` with the
     wrappers' and the plain versions' times, each wrapper's device time
-    (its kernels, ``cumsum`` and output fills) and its bound
+    (its kernels and output fills) and its bound
     (`plan_work`, `merge_work`, `cgi_work`, `fold_work`).
 
 Phases 4 to 6, 9, 10 and 11 each reset the kernels' launch counters
@@ -924,7 +927,10 @@ def phase_l1(device, gpu: str) -> None:
 # phase 14: the L2 sweep's chunk plan and merge (`csrc/l2_sweep.cu`) and
 # the gate + CGI and the identity fold (`csrc/cgi.cu`); synthetic cases of
 # `sweep_case` and `cgi_case`
-SWEEP_CASES = ("main", "overflow", "range", "empty", "one_interval", "contig_edges")
+SWEEP_CASES = ("main", "overflow", "range", "empty", "one_interval", "contig_edges",
+               "tile_edge", "at_slots", "one_past", "straddle", "many_contigs")
+# the cases whose chunk total passes their slots
+SWEEP_OVERFLOW = ("overflow", "one_past", "straddle")
 CGI_CASES = ("main", "ties", "wide_iv", "q2_padded", "draft")
 SWEEP_CMW, SWEEP_CMAX = 2985, 3072  # k = 16, l = 3000, as the presizer gives
 
@@ -939,9 +945,13 @@ def _positions(rng, n_contigs: int, contig_len: int, gap: int = 3008, pads: int 
 
     offs = np.arange(n_contigs + 1, dtype=np.int64) * (contig_len + gap)
     per = contig_len // 13
-    steps = np.cumsum(rng.integers(1, 24, size=(n_contigs, per)), axis=1)
-    gpos = [np.unique(np.minimum(row, contig_len - 1)) + offs[c] for c, row in enumerate(steps)]
-    gpos = np.concatenate(gpos + [np.full(pads, GBIG)]).astype(np.int32)
+    rows = np.minimum(np.cumsum(rng.integers(1, 24, size=(n_contigs, per)), axis=1),
+                      contig_len - 1)
+    # each row ascends strictly but for the clamp at its end: keep the first of a run
+    new = np.ones(rows.shape, bool)
+    new[:, 1:] = rows[:, 1:] != rows[:, :-1]
+    gpos = (rows + offs[:n_contigs, None])[new]
+    gpos = np.concatenate([gpos, np.full(pads, GBIG)]).astype(np.int32)
     bucket, shift, depth = _build_gpos_bucket(gpos[None, :])
     return offs.astype(np.int32), np.searchsorted(gpos, offs).astype(np.int32), gpos, bucket[0], shift, depth
 
@@ -949,14 +959,19 @@ def _positions(rng, n_contigs: int, contig_len: int, gap: int = 3008, pads: int 
 def sweep_case(name: str):
     """The operands of one synthetic `l2_plan` call of `SWEEP_CASES`, as
     numpy arrays and ints in the wrapper's order, made from a seed: the
-    candidate intervals of F fragments (``ivmax`` columns each, a share
-    valid, the columns past them junk that nothing may read) over a store
-    of contigs.  ``main`` is the all-vs-all's shape (F 4096, ivmax 32,
-    t_chunks 37: 151,552 chunk slots); the others are small and each
-    drives one edge: more chunks than slots (``overflow``), ranges past
-    ``rcap`` (``range``), no valid interval (``empty``), one interval of
-    ten chunks (``one_interval``), and short contigs whose chunks' windows
-    end past the contig (``contig_edges``)."""
+    candidate intervals of F fragments as global positions (``ivmax``
+    columns each, a share valid, a few starting before their contig, the
+    columns past them junk that nothing but the contig lookup may read)
+    over a store of contigs.  ``main`` is the all-vs-all's shape (F 4096,
+    ivmax 32, t_chunks 37: 151,552 chunk slots); the others are small and
+    each drives one edge: more chunks than slots (``overflow``), ranges
+    past ``rcap`` (``range``), no valid interval (``empty``), one interval
+    of ten chunks (``one_interval``), short contigs whose chunks' windows
+    end past the contig (``contig_edges``), 1,037 intervals, two past a
+    tile of the kernels (``tile_edge``), a chunk total of exactly the
+    slots (``at_slots``) and of one more (``one_past``), an interval of
+    several chunks across the last slot (``straddle``), and 12,000
+    contigs, past the kernels' shared-memory table (``many_contigs``)."""
     rng = np.random.default_rng(sum(name.encode()) + 14)
     F, ivmax, t_chunks, frac, span_hi, rcap = 64, 8, 37, 0.6, SWEEP_CMAX, 896
     n_contigs, contig_len = 8, 200_000
@@ -972,6 +987,12 @@ def sweep_case(name: str):
         F, ivmax, t_chunks = 1, 1, 16
     elif name == "contig_edges":
         F, n_contigs, contig_len = 128, 200, 6_000
+    elif name == "tile_edge":
+        F, ivmax = 1037, 1
+    elif name in ("at_slots", "one_past", "straddle"):
+        span_hi = 3 * SWEEP_CMAX
+    elif name == "many_contigs":
+        F, n_contigs, contig_len = 256, 12_000, 3_000
     coff, cof, gpos, bucket, shift, depth = _positions(rng, n_contigs, contig_len)
     NI = F * ivmax
     n_f = rng.binomial(ivmax, frac, size=F)
@@ -983,14 +1004,29 @@ def sweep_case(name: str):
     c1 = np.minimum(c0 + rng.integers(1, span_hi + 1, NI) - 1, contig_len - 1)
     if name == "one_interval":
         valid[:], seq[:], c0[:], c1[:] = True, 3, 1000, 1000 + 10 * SWEEP_CMAX - 1
+    # a window that starts before its contig: the lookup clamps it to 0
+    early = rng.random(NI) < 0.05
+    c0[early] = 0
+    c1[early] = np.minimum(rng.integers(0, span_hi, int(early.sum())), contig_len - 1)
+    base = coff[seq].astype(np.int64)
+    g0, g1 = base + c0, base + c1
+    g0[early] -= rng.integers(1, 3000, int(early.sum()))
     junk = ~valid
-    seq[junk] = rng.integers(-3, n_contigs + 3, int(junk.sum()))
-    c0[junk] = rng.integers(-5000, 5000, int(junk.sum()))
-    c1[junk] = rng.integers(-5000, 5000, int(junk.sum()))
-    frag = np.arange(NI) // ivmax
+    g0[junk] = rng.integers(-5000, int(coff[-1]) + 5000, int(junk.sum()))
+    g1[junk] = rng.integers(-5000, int(coff[-1]) + 5000, int(junk.sum()))
     ch_max = -(-F * t_chunks // 256) * 256
-    return (frag, seq, c0, c1, valid, coff, cof, gpos, bucket, shift, depth,
-            SWEEP_CMW, SWEEP_CMAX, rcap, ch_max)
+    n_ch = np.where(valid, -(-(c1 - c0 + 1) // SWEEP_CMAX), 0)
+    total = int(n_ch.sum())
+    if name == "at_slots":
+        ch_max = total
+    elif name == "one_past":
+        ch_max = total - 1
+    elif name == "straddle":  # the last slot is the second chunk of an interval
+        wide = np.flatnonzero(n_ch >= 3)
+        i = int(wide[len(wide) // 2])
+        ch_max = int(n_ch[:i].sum()) + 2
+    return (g0.astype(np.int32).reshape(F, ivmax), g1.astype(np.int32).reshape(F, ivmax), valid,
+            ivmax, coff, cof, gpos, bucket, shift, depth, SWEEP_CMW, SWEEP_CMAX, rcap, ch_max)
 
 
 def torch_args(case, device):
@@ -1084,16 +1120,18 @@ def _same_shape(what: str, got, want) -> None:
 
 def _plan_err(got, want) -> int:
     """The contract of `l2_plan`'s kernels against the plain version:
-    raises unless shapes, types, both flags and ``ends`` agree, and both
-    hold ``rlen = ch_len = ch_c0 = 0`` on the slots at and past ``min(total,
-    ch_max)``; returns the largest absolute difference of the five chunk
-    operands on the slots below it."""
+    raises unless shapes, types, both flags, ``ends`` and the contigs
+    ``iv_seq`` agree, and both hold ``rlen = ch_len = ch_c0 = 0`` on the
+    slots at and past ``min(total, ch_max)``; returns the largest absolute
+    difference of the five chunk operands on the slots below it."""
     _same_shape("l2_plan", got, want)
-    for name, g, w in zip(("overflow", "rovf"), got[6:], want[6:]):
+    for name, g, w in zip(("overflow", "rovf"), got[7:], want[7:]):
         if bool(g) != bool(w):
             raise AssertionError(f"l2_plan {name} {bool(g)} != plain {bool(w)}")
     if not bool((got[5] == want[5]).all()):
         raise AssertionError("l2_plan ends differ from the plain version")
+    if not bool((got[6] == want[6]).all()):
+        raise AssertionError("l2_plan contigs (iv_seq) differ from the plain version")
     live = min(int(want[5][-1]), want[0].shape[0])
     for out in (got, want):
         for i in (1, 3, 4):
@@ -1152,36 +1190,35 @@ def _bound(nbytes: int, ops: int) -> dict:
 
 def plan_work(args, out) -> dict:
     """The least work of ``l2_plan(*args)``, whose plain outputs are
-    ``out``, from this call's data.  Bytes: each interval's flag read, a
-    valid one's two window offsets, an interval with a chunk slot its
-    contig and fragment, and its running chunk count written; the contig
+    ``out``, from this call's data.  Bytes: each interval's flag and last
+    position read (for its contig), a valid one's first position, its
+    contig and running chunk count written (int64 each); the contig
     tables; each live slot's (below ``min(total, ch_max)``) two searches'
     bucket bounds (8 bytes each) and the store positions they read (one a
     step: each search's bucket needs ``ceil(log2(size + 1))`` steps, at
     most ``steps``); each slot's five int32 operands written.  int32
-    operations: 6 an interval; a live slot's 3 a step of its owner's
-    search over ``ends``, 30 more and 4 a store search step.  A slot past
-    the live ones has no range, so it reads and searches nothing."""
+    operations: 3 a step of each interval's contig search
+    (``ceil(log2(C + 2))`` steps) and 6 more an interval; 30 a live slot
+    and 4 a store search step.  A slot past the live ones has no range,
+    so it reads and searches nothing."""
     import torch
 
     from pyfastani_tpu_torch._common import BIG
 
-    _, seq, _, _, valid, coff, _, _, bucket, shift, steps, cmw, _, _, ch_max = args
-    ch_c0, ch_len, ends = out[3].long(), out[4].long(), out[5]
-    NI, C1 = seq.shape[0], coff.shape[0]
+    _, _, valid, _, coff, _, _, bucket, shift, steps, cmw, _, _, ch_max = args
+    ch_c0, ch_len, ends, seq = out[3].long(), out[4].long(), out[5], out[6]
+    NI, C1 = valid.shape[0], coff.shape[0]
     live = min(int(ends[-1]), ch_max)
-    n_ch = torch.diff(ends, prepend=ends.new_zeros(1))
-    owning = int(((n_ch > 0) & (ends - n_ch < ch_max)).sum())
     owner = torch.searchsorted(ends, torch.arange(live, device=ends.device), right=True)
-    base = coff[seq[owner].clamp(0, C1 - 2)].long()
+    base = coff[seq[owner]].long()
     c0, ln = ch_c0[:live], ch_len[:live]
     keys = torch.cat([base + c0, base + (c0 + ln - 1 + cmw).clamp(max=BIG)])
     b = (keys >> shift).clamp(0, bucket.shape[0] - 2)
     size = (bucket[b + 1] - bucket[b]).double()
     depth = int(torch.ceil(torch.log2(size + 1)).clamp(max=steps).sum())
-    nbytes = (NI * (1 + 8) + int(valid.sum()) * 16 + owning * 16 + C1 * 8 + keys.numel() * 8
+    nbytes = (NI * (1 + 4 + 8 + 8) + int(valid.sum()) * 4 + C1 * 8 + keys.numel() * 8
               + 4 * depth + ch_max * 20 + 2)
-    ops = NI * 6 + live * (3 * max(1, (NI - 1).bit_length()) + 30) + 4 * depth
+    ops = NI * (3 * C1.bit_length() + 6) + live * 30 + 4 * depth
     return _bound(nbytes, ops)
 
 
@@ -1260,8 +1297,9 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
     work = work_fn(args, want) if kernel == "l2_plan" else work_fn(args)
     head = f"[14] {kernel} {name}: equal under the contract"
     if kernel == "l2_plan":
-        head += (f" ({int(want[5][-1])} chunks of {args[14]} slots from {args[1].shape[0]} "
-                 f"intervals; overflow/range flags {bool(want[6])}/{bool(want[7])})")
+        head += (f" ({int(want[5][-1])} chunks of {args[13]} slots from {args[2].shape[0]} "
+                 f"intervals on {args[4].shape[0] - 1} contigs; overflow/range flags "
+                 f"{bool(want[7])}/{bool(want[8])})")
     if not timed:
         log(f"{head} ({gpu})")
         return dict(max_abs_err=err, want=want)
@@ -1269,13 +1307,12 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
     kern_a = time_ms(wrapper, args)
     kern_b = time_ms(wrapper, args)
     plain_b = time_ms(plain, args)
-    # the bound counts the function's outputs written once, the fills of
-    # the wrapper's outputs included: its device time is every kernel of
-    # its calls
+    # the bound counts the function's outputs written once: the wrapper's
+    # device time is every kernel of its calls
     alone = kernel_device_ms(wrapper, args, "")
     log(
         f"{head}; kernel {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
-        f"call, the wrapper's device time {alone:.4f} ms (its kernels, cumsum and fills); "
+        f"call, the wrapper's device time {alone:.4f} ms (every kernel of a call); "
         f"bound {work['bound_ms']:.4f} ms by "
         f"{work['bound_by']} ({work['bytes']} B = {work['bytes_ms']:.4f} ms, {work['ops']} int32 "
         f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
@@ -1291,9 +1328,9 @@ def plan_no_store(device):
     """`sweep_case` ``contig_edges`` against an empty store (M = 0), where
     the plain version cannot run: every range is empty."""
     case = list(sweep_case("contig_edges"))
-    case[6] = np.zeros_like(case[6])  # cof_idx
-    case[7] = case[7][:0]  # mini_gpos
-    case[8] = np.zeros_like(case[8])  # gpos_bucket
+    case[5] = np.zeros_like(case[5])  # cof_idx
+    case[6] = case[6][:0]  # mini_gpos
+    case[7] = np.zeros_like(case[7])  # gpos_bucket
     return torch_args(case, device)
 
 
@@ -1309,13 +1346,13 @@ def phase_sweep(device, gpu: str) -> None:
     for name in SWEEP_CASES:
         args = torch_args(sweep_case(name), device)
         plan = check_sweep("l2_plan", name, args, gpu, timed=name == "main")["want"]
-        if bool(plan[6]) != (name == "overflow") or bool(plan[7]) != (name == "range"):
-            raise AssertionError(f"sweep case {name}: flags {bool(plan[6])}/{bool(plan[7])}")
-        check_sweep("l2_merge", name, merge_args(plan, args[4]), gpu, timed=name == "main",
-                    flagged=bool(plan[6]))
+        if bool(plan[7]) != (name in SWEEP_OVERFLOW) or bool(plan[8]) != (name == "range"):
+            raise AssertionError(f"sweep case {name}: flags {bool(plan[7])}/{bool(plan[8])}")
+        check_sweep("l2_merge", name, merge_args(plan, args[2]), gpu, timed=name == "main",
+                    flagged=bool(plan[7]))
     plan = l2_sweep.l2_plan(*plan_no_store(device))
     torch.cuda.synchronize()
-    if bool(plan[1].any()) or bool(plan[7]):
+    if bool(plan[1].any()) or bool(plan[8]):
         raise AssertionError("l2_plan found ranges in an empty store")
     log(f"[14] l2_plan on an empty store (M = 0): every range empty, no range flag ({gpu})")
     for name in CGI_CASES:
@@ -1339,7 +1376,7 @@ def check_sweep_path(name: str, captured: dict, gpu: str, timed: bool) -> dict:
     operands captured from one group of the path (`capture_operands`);
     returns each kernel's numbers."""
     plan = check_sweep("l2_plan", name, captured["l2_plan"], gpu, timed)
-    flagged = bool(plan["want"][6]) or bool(plan["want"][7])
+    flagged = bool(plan["want"][7]) or bool(plan["want"][8])
     out = {"l2_plan": plan}
     out["l2_merge"] = check_sweep("l2_merge", name, captured["l2_merge"], gpu, timed, flagged)
     out["cgi_bins"] = check_sweep("cgi_bins", name, captured["cgi_bins"], gpu, timed, flagged)
@@ -1355,7 +1392,7 @@ L1_STORE_OPERANDS = (2, 3, 4, 5, 8)
 # the same of phase 14's kernels: the contig tables, mini_gpos and the
 # gpos bucket; the gate and identity tables and seq_to_genome
 SWEEP_STORE_OPERANDS = {
-    "l2_plan": (5, 6, 7, 8), "l2_merge": (), "cgi_bins": (7, 8, 9), "fold_bins": (1,),
+    "l2_plan": (4, 5, 6, 7), "l2_merge": (), "cgi_bins": (7, 8, 9), "fold_bins": (1,),
 }
 
 
@@ -2135,7 +2172,7 @@ def main() -> int:
         "launches": launches[name],
         "case": "ava",
         **{k: v for k, v in sweep[name].items() if k not in ("device_ms", "want")},
-    } for name, line in (("l2_plan", 403), ("l2_merge", 519), ("cgi_bins", 611),
+    } for name, line in (("l2_plan", "403 and :576"), ("l2_merge", 519), ("cgi_bins", 611),
                          ("fold_bins", 1219))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

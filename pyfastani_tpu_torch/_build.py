@@ -140,12 +140,13 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,  # iv_g0, iv_g1, iv_valid, flags, scratch, stream
     ]
     lib.l1_intervals_launch.restype = i32
-    lib.l2_plan_count_launch.argtypes = [ptr, ptr, ptr, i64, i64, ptr, ptr]  # c0, c1, valid, NI, cmax, n_ch, stream
-    lib.l2_plan_count_launch.restype = i32
+    lib.l2_plan_tiles.argtypes = [i64]  # NI
+    lib.l2_plan_tiles.restype = i64
     lib.l2_plan_launch.argtypes = [
-        ptr, i64, i64, ptr, ptr, ptr, ptr,  # ends, NI, ch_max, seq, c0, c1, frag_of_iv
+        ptr, ptr, ptr, i64, i64,  # iv_g0, iv_g1, iv_valid, NI, ivmax
         ptr, i64, ptr, ptr, i64,  # contig_offset, its length, cof_idx, mini_gpos, M
-        ptr, i64, i32, i32, i64, i64, i64,  # gpos_bucket, its length, shift, steps, cmw, cmax, rcap
+        ptr, i64, i32, i32, i64, i64, i64, i64,  # gpos_bucket, its length, shift, steps, cmw, cmax, rcap, ch_max
+        ptr, ptr, ptr,  # tile totals, iv_seq, ends
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # lo, rlen, frag, c0, len, flags, stream
     ]
     lib.l2_plan_launch.restype = i32

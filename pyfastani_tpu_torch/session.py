@@ -9,9 +9,10 @@ has four stages:
 
 1. the batched fragment winnow and sketch (`ops.fragments`);
 2. the L1 candidate intervals (`ops.l1`);
-3. the L2 chunk sweep (`_l2_interval_scan`): the chunk plan
-   (`ops.l2_sweep.l2_plan`), the per-chunk evaluator `ops.l2.l2_chunks`
-   and the merge per interval (`ops.l2_sweep.l2_merge`);
+3. the L2 chunk sweep (`_l2_interval_scan`): the contig lookup and
+   chunk plan (`ops.l2_sweep.l2_plan`), the per-chunk evaluator
+   `ops.l2.l2_chunks` and the merge per interval
+   (`ops.l2_sweep.l2_merge`);
 4. the identity gate and the two CGI reductions (`ops.cgi.cgi_bins`).
 
 Each stage's wrapper launches a CUDA kernel for CUDA tensors and runs its
@@ -82,22 +83,24 @@ def _toupper(frags):
 
 
 def _l2_interval_scan(
-    q_sorted, s_sizes, frag_of_iv, iv_seq, iv_c0, iv_c1, iv_valid, idx,
+    q_sorted, s_sizes, iv_g0, iv_g1, iv_valid, idx, ivmax: int,
     gpos_shift: int, gpos_steps: int, cmw: int, cmax: int, rmax: int, ch_max: int,
 ):
-    """``(best, first, last)`` per candidate interval, and the flags
-    ``(ovf_chunks, ovf_r, range_bad)``.
+    """``(best, first, last)`` per candidate interval, the flags
+    ``(ovf_chunks, ovf_r, range_bad)`` and each interval's contig.
 
-    Intervals are cut into chunks of at most ``cmax`` window offsets,
-    compacted to the front of a ``ch_max``-slot axis.  Each chunk's range
-    of reference minimizers is clamped to its contig's block (``cof_idx``),
-    so ranges hold one contig and positions ascend; a range longer than
-    ``R - 128`` (``R = _l2_kernel_rows(rmax)``) is flagged.  Chunk results
-    merge back per interval: the max, then the first/last anchor at it.
+    The L1 stage's intervals (global positions, ``(F, ivmax)`` each) are
+    looked up in the contig table and cut into chunks of at most ``cmax``
+    window offsets, compacted to the front of a ``ch_max``-slot axis.
+    Each chunk's range of reference minimizers is clamped to its contig's
+    block (``cof_idx``), so ranges hold one contig and positions ascend; a
+    range longer than ``R - 128`` (``R = _l2_kernel_rows(rmax)``) is
+    flagged.  Chunk results merge back per interval: the max, then the
+    first/last anchor at it.
     """
     R = _l2_kernel_rows(rmax)
-    lo, rlen, ch_frag, ch_c0, ch_len, ends, overflow, rovf = l2_plan(
-        frag_of_iv, iv_seq, iv_c0, iv_c1, iv_valid, idx["contig_offset"], idx["cof_idx"],
+    lo, rlen, ch_frag, ch_c0, ch_len, ends, iv_seq, overflow, rovf = l2_plan(
+        iv_g0, iv_g1, iv_valid, ivmax, idx["contig_offset"], idx["cof_idx"],
         idx["mini_gpos"], idx["gpos_bucket"], gpos_shift, gpos_steps, cmw, cmax, R - 128, ch_max,
     )
     cbest, cfirst, clast, range_bad = l2_chunks(
@@ -105,7 +108,7 @@ def _l2_interval_scan(
         lo, rlen, ch_frag, ch_c0, ch_len, cmw, R - 128,
     )
     best, first, last = l2_merge(cbest, cfirst, clast, ends, iv_valid)
-    return best, first, last, overflow, rovf, range_bad
+    return best, first, last, overflow, rovf, range_bad, iv_seq
 
 
 def _query_block(
@@ -126,8 +129,6 @@ def _query_block(
     t_chunks, rmax), then the L2 range flag (`ops.l2.l2_chunks`).  No
     operation waits for the device.
     """
-    dev = frags.device
-    i64 = torch.int64
     F = frags.shape[0]
     cmw = l - (k - 1)
 
@@ -141,23 +142,10 @@ def _query_block(
         idx["post_gpos"], freq_threshold, min_hits_table, idx["hash_bucket"],
         hmax, ivmax, l, bucket_steps, m_values,
     )
-    # contig id and contig-local coordinates per interval; iv_g1 is a real
-    # minimizer's gpos, iv_g0 may precede the contig base and is clamped
-    coff = idx["contig_offset"]
-    g0f = iv_g0.reshape(-1).to(i64)
-    g1f = iv_g1.reshape(-1).to(i64)
-    iv_seq = (torch.searchsorted(coff.to(i64), g1f, right=True) - 1).clamp(
-        0, coff.shape[0] - 2
-    )
-    iv_base = coff[iv_seq].to(i64)
-    iv_c0 = torch.maximum(g0f, iv_base) - iv_base
-    iv_c1 = g1f - iv_base
-
-    frag_of_iv = torch.arange(F * ivmax, device=dev) // ivmax
     ch_max = _round_up(F * t_chunks, _CH_SLAB)
     iv_valid = iv_valid.reshape(-1)
-    best, first, last, ovf_ch, ovf_r, range_bad = _l2_interval_scan(
-        q_sorted, s_sizes, frag_of_iv, iv_seq, iv_c0, iv_c1, iv_valid, idx,
+    best, first, last, ovf_ch, ovf_r, range_bad, iv_seq = _l2_interval_scan(
+        q_sorted, s_sizes, iv_g0, iv_g1, iv_valid, idx, ivmax,
         gpos_shift, gpos_steps, cmw, cmax, rmax, ch_max,
     )
     flags = torch.stack(

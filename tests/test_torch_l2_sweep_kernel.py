@@ -3,13 +3,16 @@
 ``chip_smoke.SWEEP_CASES`` are the inputs the kernels
 (``csrc/l2_sweep.cu``) have to get right: the all-vs-all's shape, more
 chunks than slots, ranges past their capacity, no valid interval, one
-interval of many chunks, and chunks whose windows end past their contig.
+interval of many chunks, chunks whose windows end past their contig,
+intervals off the plan's tile, chunk totals at and one past the slots, an
+interval across the last slot, and contigs past the kernels'
+shared-memory table.
 ``tests/test_torch_l2_sweep.py`` holds the plain versions, through the
 session's ``_l2_interval_scan``, against the JAX package; here the
 wrappers' dispatch and the contracts' checks run on the CPU, and the
 kernels against the plain versions in tests that need a card (marker
-``cuda``), under the contracts (``chip_smoke._plan_err``: both flags and
-``ends`` always equal, the chunk operands on the live slots,
+``cuda``), under the contracts (``chip_smoke._plan_err``: both flags,
+``ends`` and ``iv_seq`` always equal, the chunk operands on the live slots,
 ``rlen = ch_len = ch_c0 = 0`` past them; ``chip_smoke._merge_err``: every
 interval while no flag is raised).  The file imports no JAX, so it also
 runs where JAX is absent:
@@ -22,6 +25,7 @@ import torch
 
 from chip_smoke import (
     SWEEP_CASES,
+    SWEEP_OVERFLOW,
     _merge_err,
     _plan_err,
     merge_args,
@@ -44,28 +48,30 @@ def _same(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("name", ["overflow", "range", "empty", "one_interval"])
+@pytest.mark.parametrize("name", ["overflow", "range", "empty", "one_interval", "tile_edge",
+                                  "straddle"])
 def test_plan_and_merge_take_plain_versions_on_cpu_only(name):
     args = torch_args(sweep_case(name), "cpu")
     launched = _counts("launches")
     before = _counts("reference_calls")
     plan = l2_sweep.l2_plan(*args)
     _same(plan, l2_sweep.l2_plan_reference(*args))
-    margs = merge_args(plan, args[4])
+    margs = merge_args(plan, args[2])
     _same(l2_sweep.l2_merge(*margs), l2_sweep.l2_merge_reference(*margs))
     assert _counts("launches") == launched
     after = _counts("reference_calls")
     assert {k: after[k] - before[k] for k in before} == {"l2_plan": 2, "l2_merge": 2}
-    assert [t.dtype for t in plan[:6]] == [torch.int32] * 5 + [torch.int64]
-    assert plan[6].dim() == plan[7].dim() == 0 and plan[6].dtype == plan[7].dtype == torch.bool
-    assert (bool(plan[6]), bool(plan[7])) == (name == "overflow", name == "range")
+    assert [t.dtype for t in plan[:7]] == [torch.int32] * 5 + [torch.int64] * 2
+    assert plan[5].shape == plan[6].shape == args[2].shape
+    assert plan[7].dim() == plan[8].dim() == 0 and plan[7].dtype == plan[8].dtype == torch.bool
+    assert (bool(plan[7]), bool(plan[8])) == (name in SWEEP_OVERFLOW, name == "range")
 
 
 def test_plan_and_merge_refuse_other_devices():
     args = torch_args(sweep_case("one_interval"), "cpu")
     plan = l2_sweep.l2_plan_reference(*args)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
-    margs = [a.to("meta") for a in merge_args(plan, args[4])]
+    margs = [a.to("meta") for a in merge_args(plan, args[2])]
     before = (_counts("launches"), _counts("reference_calls"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         l2_sweep.l2_plan(*meta)
@@ -75,9 +81,9 @@ def test_plan_and_merge_refuse_other_devices():
 
 
 def test_contracts_of_the_checks():
-    """`_plan_err` fails on a flag, ``ends`` or a non-zero operand past the
-    live slots and measures the live slots only; `_merge_err` measures
-    every interval unless the pass is flagged."""
+    """`_plan_err` fails on a flag, ``ends``, a contig or a non-zero
+    operand past the live slots and measures the live slots only;
+    `_merge_err` measures every interval unless the pass is flagged."""
     args = torch_args(sweep_case("range"), "cpu")
     want = l2_sweep.l2_plan_reference(*args)
     live = int(want[5][-1])
@@ -97,12 +103,16 @@ def test_contracts_of_the_checks():
     bad[5][0] += 1
     with pytest.raises(AssertionError, match="ends"):
         _plan_err(bad, want)
-    for i in (6, 7):
+    bad = [t.clone() for t in got]
+    bad[6][-1] += 1  # an invalid interval's contig counts too
+    with pytest.raises(AssertionError, match="contigs"):
+        _plan_err(bad, want)
+    for i in (7, 8):
         bad = [t.clone() for t in got]
         bad[i] = ~bad[i]
         with pytest.raises(AssertionError, match="overflow|rovf"):
             _plan_err(bad, want)
-    m = l2_sweep.l2_merge_reference(*merge_args(want, args[4]))
+    m = l2_sweep.l2_merge_reference(*merge_args(want, args[2]))
     bad = [t.clone() for t in m]
     bad[1][0] += 2
     assert _merge_err(bad, m) == 2
@@ -123,7 +133,7 @@ def test_cuda_kernels_match_reference(name):
     before = _counts("reference_calls")
     plan = l2_sweep.l2_plan(*args)
     want = l2_sweep.l2_plan_reference(*args)
-    margs = merge_args(want, args[4])
+    margs = merge_args(want, args[2])
     merged = l2_sweep.l2_merge(*margs)
     torch.cuda.synchronize()
     after = _counts("launches")
@@ -131,7 +141,9 @@ def test_cuda_kernels_match_reference(name):
     assert _plan_err(plan, want) == 0
     live = min(int(want[5][-1]), want[0].shape[0])
     assert all(not bool(t[live:].any()) for t in plan[:5])  # an empty slot is all 0
-    assert _merge_err(merged, l2_sweep.l2_merge_reference(*margs), bool(want[6])) == 0
+    # the kernels' design, which their plain twin spells out, bitwise
+    _same(plan, l2_sweep.l2_plan_tiled(*torch_args(sweep_case(name), "cpu")))
+    assert _merge_err(merged, l2_sweep.l2_merge_reference(*margs), bool(want[7])) == 0
     assert l2_sweep.l2_plan_reference_calls == before["l2_plan"] + 1
 
 
@@ -140,7 +152,7 @@ def test_cuda_plan_on_an_empty_store():
     _cuda()
     plan = l2_sweep.l2_plan(*plan_no_store("cuda"))
     torch.cuda.synchronize()
-    assert not bool(plan[1].any()) and not bool(plan[7])
+    assert not bool(plan[1].any()) and not bool(plan[8])
 
 
 @pytest.mark.cuda
@@ -148,15 +160,19 @@ def test_cuda_kernels_refuse_wrong_types():
     _cuda()
     args = list(torch_args(sweep_case("one_interval"), "cuda"))
     bad = list(args)
-    bad[1] = args[1].to(torch.int32)
-    with pytest.raises(TypeError, match="iv_seq"):
+    bad[1] = args[1].to(torch.int64)
+    with pytest.raises(TypeError, match="iv_g1"):
         l2_sweep.l2_plan(*bad)
     bad = list(args)
-    bad[7] = args[7].to(torch.int64)
+    bad[0] = args[0].reshape(-1)
+    with pytest.raises(TypeError, match="iv_g0"):
+        l2_sweep.l2_plan(*bad)
+    bad = list(args)
+    bad[6] = args[6].to(torch.int64)
     with pytest.raises(TypeError, match="mini_gpos"):
         l2_sweep.l2_plan(*bad)
     plan = l2_sweep.l2_plan(*args)
-    margs = list(merge_args(plan, args[4]))
+    margs = list(merge_args(plan, args[2]))
     margs[1] = margs[1][:-1]
     with pytest.raises(ValueError, match="cfirst"):
         l2_sweep.l2_merge(*margs)

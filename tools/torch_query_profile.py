@@ -24,9 +24,10 @@ steady ``query_many`` passes reports:
   (the Chrome trace lands in ``build/torch_query_profile/``);
 * the split of one profiled pass by the steps of a group (`split_pass`):
   in ``_l2_interval_scan`` the chunk plan (every op before
-  ``l2_chunks``), ``l2_chunks`` and the merge (every op after it); in
-  ``_query_block`` the contig lookup (between ``l1_candidates`` and the
-  sweep) and the gate and CGI (after the sweep); ``_fold``; and
+  ``l2_chunks``: the plan's kernels, which also look up each interval's
+  contig), ``l2_chunks`` and the merge (every op after it); in
+  ``_query_block`` the ops between ``l1_candidates`` and the sweep
+  ("before sweep") and the gate and CGI (after the sweep); ``_fold``; and
   ``_pass``'s glue (its own ops outside ``_query_block`` and ``_fold``).
   For each step: host ms (the span of its ops, under the profiler), the
   torch ops it enqueues, the device kernels they launch and their device
@@ -160,7 +161,7 @@ def split_pass(run):
         S.ShardedSession._pass = orig_pass
 
     steps = {k: [0.0, 0, 0, 0.0] for k in (
-        "l2 plan", "l2_chunks", "l2 merge", "contig lookup", "gate + CGI", "fold", "_pass glue",
+        "l2 plan", "l2_chunks", "l2 merge", "before sweep", "gate + CGI", "fold", "_pass glue",
     )}
     cummax = [0.0, 0]
     kernel_names = {k: {} for k in steps}
@@ -209,7 +210,7 @@ def split_pass(run):
             kids = sorted(q.cpu_children, key=lambda c: c.time_range.start)
             l1 = next(c for c in kids if name(c) == "l1_candidates")
             scan = next(c for c in kids if name(c) == "_l2_interval_scan")
-            add("contig lookup",
+            add("before sweep",
                 [c for c in kids if l1.time_range.end <= c.time_range.start < scan.time_range.start],
                 scan.time_range.start - l1.time_range.end)
             add("gate + CGI", [c for c in kids if c.time_range.start >= scan.time_range.end],
