@@ -106,8 +106,10 @@ result:
     torch versions under their contracts (`_plan_err`: both flags,
     ``ends`` and the contigs always, the chunk operands on the live
     slots, 0 past them; `_merge_err`: every interval while no flag is raised;
-    `_cgi_err`: the bins bitwise, ``-inf`` included, while no flag is
-    raised; `_fold_err`: every output), on CUDA tensors: the synthetic
+    `_cgi_err`: the kept slots, and the bins they give (their max into
+    ``-inf`` bins, `densify`) bitwise, ``-inf`` included, while no flag is
+    raised; `_fold_err`: every output, the merged flags, and the scratch
+    all ``-inf`` after the fold), on CUDA tensors: the synthetic
     cases of `SWEEP_CASES` (``main`` at the all-vs-all's shape, more
     chunks than slots, ranges past their capacity, no valid interval, one
     interval of ten chunks, chunks past their contig's end, intervals off
@@ -116,12 +118,17 @@ result:
     `CGI_CASES` (``main`` at the all-vs-all's shape, tied intervals, more
     intervals than a warp, two query genomes with padded rows, genomes of
     several contigs), the plan on an empty store (M = 0, where the plain
-    version cannot run) and the fold of empty bins; and, captured from
-    the path, ``real`` (phase 4's first group) and ``ava`` (the
-    all-vs-all's first group).  ``main``, ``real`` and ``ava`` with the
+    version cannot run) and the fold of slots that keep nothing; and,
+    captured from the path, ``real`` (phase 4's first group), ``ava`` (the
+    all-vs-all's first group) and, for the merge, CGI and the fold,
+    ``draft`` (one ``Mapper.query_draft`` call on phase 10's panel:
+    ``q_capacity`` 1).  ``main``, ``real``, ``ava`` and ``draft`` with the
     wrappers' and the plain versions' times, each wrapper's device time
-    (its kernels and output fills) and its bound
-    (`plan_work`, `merge_work`, `cgi_work`, `fold_work`).
+    (its kernels and output fills) and its bound (`plan_work`,
+    `merge_work`, `cgi_work`, `fold_work`; for CGI and the fold also the
+    bound of the dense contract, which wrote and read every bin).
+    After every pass of phases 4 to 6, 9, 10 and 11, and every fold here,
+    the session's scratch bins read all ``-inf`` (`check_scratch`).
 
 Phases 4 to 6, 9, 10 and 11 each reset the kernels' launch counters
 before their run and fail unless every kernel ran and no plain version
@@ -1106,10 +1113,79 @@ def cgi_case(name: str):
             SWEEP_CMW, l, ivmax, bin_max, g_max, q)
 
 
-def fold_args(best_bin, case):
-    """`fold_bins` operands for a `cgi_case` and its bins."""
+def fold_args(slots, case, flags=None):
+    """`fold_bins` operands for `cgi_bins` operands ``case`` (tensors) and
+    their slots: a fresh ``-inf`` scratch and ``(3, q, g_max)`` output on
+    the slots' device, and with ``flags`` (int32 rows of 6) their merge
+    into a fresh ``out_flags``."""
+    import torch
+
     *_, s2g, _, _, _, bin_max, g_max, q = case
-    return best_bin, s2g, q, bin_max, g_max
+    dev = slots[0].device
+    scratch = torch.full((q * s2g.shape[0] * bin_max,), -np.inf, device=dev)
+    out = torch.empty((3, q, g_max), dtype=torch.int64, device=dev)
+    out_flags = None if flags is None else torch.zeros(flags.shape[-1], dtype=torch.int64,
+                                                        device=dev)
+    return (*slots, scratch, s2g, q, bin_max, g_max, out, flags, out_flags)
+
+
+def fold_fresh(args):
+    """``fold_bins`` operands with their outputs fresh: a new ``out``, and
+    a new ``out_flags`` when the flags merge."""
+    import torch
+
+    out_flags = args[9]
+    return (*args[:7], torch.empty_like(args[7]), args[8],
+            None if out_flags is None else torch.zeros_like(out_flags))
+
+
+def second_row(slots, shift: int):
+    """A second data row of one shard for `cgi_bins`' slots: the same kept
+    bins, the first, third, ... kept slot's identity 0.01 above the first
+    row's and the others' 0.01 below, so the bins' maxima come from both
+    rows; rolled by ``shift`` slots."""
+    import torch
+
+    slot_bin, slot_ident = slots
+    kept = slot_bin >= 0
+    step = torch.where(torch.cumsum(kept, 0) % 2 == 1, 0.01, -0.01).to(slot_ident.dtype)
+    ident = torch.where(kept, slot_ident + step, slot_ident)
+    return slot_bin.roll(shift), ident.roll(shift)
+
+
+def densify(slots, n_bins: int):
+    """The dense per-(query genome, contig, bin) best identity of `cgi_bins`'
+    slots: their max into ``n_bins`` bins of ``-inf`` (the JAX package's
+    ``best_bin``)."""
+    import torch
+
+    slot_bin, slot_ident = slots
+    kept = slot_bin >= 0
+    bins = torch.full((n_bins,), -np.inf, device=slot_bin.device)
+    return bins.scatter_reduce_(0, slot_bin[kept], slot_ident[kept], "amax")
+
+
+def cgi_bins_count(args) -> int:
+    """``q_count * C * bin_max`` of a `cgi_bins` call."""
+    return args[15] * args[9].shape[0] * args[13]
+
+
+def scratch_clean(scratch, where: str) -> None:
+    """Raises unless every scratch bin reads ``-inf``."""
+    import torch
+
+    if not bool(torch.isneginf(scratch).all()):
+        raise AssertionError(f"{where}: the fold left scratch bins other than -inf")
+
+
+def check_scratch(session, where: str) -> None:
+    """After a session's passes: its scratch bins all ``-inf``, none dirty."""
+    import torch
+
+    torch.cuda.synchronize()
+    if session._scratch_dirty:
+        raise AssertionError(f"{where}: the session's scratch is marked dirty")
+    scratch_clean(session._scratch, where)
 
 
 def _same_shape(what: str, got, want) -> None:
@@ -1153,16 +1229,23 @@ def _merge_err(got, want, flagged: bool = False) -> int:
     return max(int((g - w).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
 
 
-def _cgi_err(got, want, flagged: bool = False) -> float:
-    """The contract of `cgi_bins`' kernel: with the pass's flags clear,
-    ``best_bin`` bitwise equal; raises when an empty (``-inf``) bin or a
+def _cgi_err(got, want, flagged: bool = False, n_bins: int | None = None) -> float:
+    """The contract of `cgi_bins`' kernel: with the pass's flags clear, the
+    slots ``(slot_bin, slot_ident)`` equal, and the bins they give
+    (`densify` into ``n_bins``, by default one past the largest kept bin)
+    bitwise equal; raises when a slot's bin, an empty (``-inf``) bin or a
     bit pattern differs, returns the largest absolute difference of the
     occupied bins (0.0 when a flag is raised)."""
     import torch
 
-    _same_shape("cgi_bins", (got,), (want,))
+    _same_shape("cgi_bins", got, want)
     if flagged:
         return 0.0
+    if not bool((got[0] == want[0]).all()):
+        raise AssertionError("cgi_bins kept slots differ from the plain version")
+    if n_bins is None:
+        n_bins = int(want[0].max()) + 1 if want[0].numel() else 0
+    got, want = densify(got, n_bins), densify(want, n_bins)
     if not bool((torch.isinf(got) == torch.isinf(want)).all()):
         raise AssertionError("cgi_bins empty bins differ from the plain version")
     fin = ~torch.isinf(want)
@@ -1232,13 +1315,15 @@ def merge_work(args) -> dict:
     return _bound(live * 12 + NI * (8 + 1 + 24), live * 4 + NI * 6)
 
 
-def cgi_work(args) -> dict:
+def cgi_work(args, dense: bool = False) -> dict:
     """The least work of ``cgi_bins(*args)``, from this call's data: each
     interval's best and flag read, each fragment's size, query genome and
     gate (4 bytes each); a mapped interval's first, last and contig
-    (int64), its identity and genome looked up (4 bytes each); and
-    ``best_bin`` written once.  int32 operations: 4 an interval (the
-    gate) and 25 a mapped one (the bin, the identity, its comparisons)."""
+    (int64), its identity and genome looked up (4 bytes each); and each
+    interval's slot written (12 bytes; with ``dense``, the dense contract:
+    ``best_bin`` written once instead).  int32 operations: 4 an interval
+    (the gate) and 25 a mapped one (the bin, the identity, its
+    comparisons)."""
     import torch
 
     best, _, _, valid, _, s_sizes, _, gate = args[:8]
@@ -1247,18 +1332,30 @@ def cgi_work(args) -> dict:
     s_iv = s_sizes.long().repeat_interleave(ivmax)
     gate_iv = gate.long()[s_iv.clamp(0, gate.shape[0] - 1)]
     mapped = int((valid & (best > 0) & (best >= gate_iv)).sum())
-    n_bins = q * s2g.shape[0] * bin_max
-    return _bound(NI * (8 + 1) + F * 12 + mapped * (3 * 8 + 2 * 4) + n_bins * 4,
+    written = q * s2g.shape[0] * bin_max * 4 if dense else NI * 12
+    return _bound(NI * (8 + 1) + F * 12 + mapped * (3 * 8 + 2 * 4) + written,
                   NI * 4 + mapped * 25)
 
 
-def fold_work(args) -> dict:
-    """The least work of ``fold_bins(*args)``: the bins read once, the
-    contigs' genomes, three ``(q, g_max)`` int64 written; 6 int32
-    operations a bin."""
-    best_bin, s2g, q, _, g_max = args
-    n = best_bin.shape[0]
-    return _bound(n * 4 + s2g.shape[0] * 4 + 3 * q * g_max * 8, n * 6)
+def fold_work(args, dense: bool = False) -> dict:
+    """The least work of ``fold_bins(*args)``, from this call's data: each
+    slot's bin read once (8 bytes) and a kept slot's identity (4 bytes;
+    an unkept slot's is not needed), each bin they touch read and left
+    ``-inf`` (4 bytes each way), the contigs' genomes, three ``(q, g_max)``
+    int64 written, and the flags' rows read and their merge written; 6
+    int32 operations a slot and 20 a touched bin.  With ``dense``, the dense
+    contract: every bin read once and 6 operations a bin."""
+    import torch
+
+    slot_bin, _, scratch, s2g, q, _, g_max, _, flags, _ = args
+    fixed = s2g.shape[0] * 4 + 3 * q * g_max * 8
+    fixed += 0 if flags is None else flags.numel() * 4 + flags.shape[-1] * 8
+    if dense:
+        return _bound(scratch.shape[0] * 4 + fixed, scratch.shape[0] * 6)
+    kept = slot_bin[slot_bin >= 0]
+    touched = int(torch.unique(kept).numel())
+    return _bound(slot_bin.shape[0] * 8 + kept.numel() * 4 + touched * 8 + fixed,
+                  slot_bin.shape[0] * 6 + touched * 20)
 
 
 # phase 14's four kernels: wrapper, plain version, contract, work, and the
@@ -1285,10 +1382,23 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
     mod_name, fn, err_fn, work_fn = SWEEP_KERNELS[kernel]
     mod = importlib.import_module(f"pyfastani_tpu_torch.ops.{mod_name}")
     wrapper, plain = getattr(mod, fn), getattr(mod, f"{fn}_reference")
-    got = wrapper(*args)
-    want = plain(*args)
+    if kernel == "fold_bins":  # each call its own outputs; the scratch is shared
+        scratch_clean(args[2], f"fold_bins {name}: the scratch on entry")
+        got_args, want_args = fold_fresh(args), fold_fresh(args)
+        got = wrapper(*got_args)
+        torch.cuda.synchronize()
+        scratch_clean(args[2], f"fold_bins {name} (kernel)")
+        want = plain(*want_args)
+        scratch_clean(args[2], f"fold_bins {name} (plain version)")
+        if args[8] is not None and not bool((got_args[9] == want_args[9]).all()):
+            raise AssertionError(f"fold_bins {name}: merged flags differ from the plain version")
+    else:
+        got = wrapper(*args)
+        want = plain(*args)
     torch.cuda.synchronize()
-    if kernel in ("l2_merge", "cgi_bins"):
+    if kernel == "cgi_bins":
+        err = err_fn(got, want, flagged, cgi_bins_count(args))
+    elif kernel == "l2_merge":
         err = err_fn(got, want, flagged)
     else:
         err = err_fn(got, want)
@@ -1296,6 +1406,8 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
         raise AssertionError(f"{kernel} kernel differs from the plain version ({name}): {err}")
     work = work_fn(args, want) if kernel == "l2_plan" else work_fn(args)
     head = f"[14] {kernel} {name}: equal under the contract"
+    if kernel == "fold_bins":
+        head += f", the scratch all -inf after each fold ({int((args[0] >= 0).sum())} kept slots)"
     if kernel == "l2_plan":
         head += (f" ({int(want[5][-1])} chunks of {args[13]} slots from {args[2].shape[0]} "
                  f"intervals on {args[4].shape[0] - 1} contigs; overflow/range flags "
@@ -1310,12 +1422,21 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
     # the bound counts the function's outputs written once: the wrapper's
     # device time is every kernel of its calls
     alone = kernel_device_ms(wrapper, args, "")
+    if kernel == "fold_bins":
+        scratch_clean(args[2], f"fold_bins {name} after the timed calls")
+    old = ""
+    if kernel in ("cgi_bins", "fold_bins"):
+        dense = work_fn(args, dense=True)
+        old = (f"; the dense contract's bound {dense['bound_ms']:.4f} ms by "
+               f"{dense['bound_by']} ({dense['bytes']} B), {100 * dense['bound_ms'] / alone:.1f}% "
+               f"of it")
     log(
         f"{head}; kernel {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
         f"call, the wrapper's device time {alone:.4f} ms (every kernel of a call); "
         f"bound {work['bound_ms']:.4f} ms by "
         f"{work['bound_by']} ({work['bytes']} B = {work['bytes_ms']:.4f} ms, {work['ops']} int32 "
-        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached ({gpu})"
+        f"ops = {work['ops_ms']:.4f} ms), {100 * work['bound_ms'] / alone:.1f}% of it reached"
+        f"{old} ({gpu})"
     )
     return dict(
         max_abs_err=err, ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
@@ -1356,19 +1477,26 @@ def phase_sweep(device, gpu: str) -> None:
         raise AssertionError("l2_plan found ranges in an empty store")
     log(f"[14] l2_plan on an empty store (M = 0): every range empty, no range flag ({gpu})")
     for name in CGI_CASES:
-        case = cgi_case(name)
-        bins = check_sweep("cgi_bins", name, torch_args(case, device), gpu,
-                           timed=name == "main")["want"]
-        if int(torch.isfinite(bins).sum()) == 0:
-            raise AssertionError(f"cgi case {name}: no bin occupied")
-        check_sweep("fold_bins", name, torch_args(fold_args(bins, case), device), gpu,
-                    timed=name == "main")
-    empty = torch.full_like(bins, -np.inf)
-    counts = cgi.fold_bins(*torch_args(fold_args(empty, case), device))[0]
+        args = torch_args(cgi_case(name), device)
+        slots = check_sweep("cgi_bins", name, args, gpu, timed=name == "main")["want"]
+        if int((slots[0] >= 0).sum()) == 0:
+            raise AssertionError(f"cgi case {name}: no slot kept")
+        # two data rows' slots of one shard, the second's identities 0.01 off the
+        # first's in the same bins, and their flags, the second row flagged
+        flags = torch.tensor([[0, 0, 0, 0, 0, 0], [0, 1, 0, 0, 0, 1]], dtype=torch.int32,
+                             device=device)
+        two = [torch.cat(pair) for pair in zip(slots, second_row(slots, 7))]
+        for rows, fargs in (("", fold_args(slots, args)),
+                            (" (two data rows)", fold_args(two, args, flags))):
+            check_sweep("fold_bins", name + rows, fargs, gpu, timed=name == "main" and not rows)
+    none = (torch.full_like(slots[0], -1), torch.full_like(slots[1], -np.inf))
+    fargs = fold_args(none, args)
+    counts = cgi.fold_bins(*fargs)[0]
     torch.cuda.synchronize()
     if bool(counts.any()):
-        raise AssertionError("fold_bins counted bins of an empty best_bin")
-    log(f"[14] fold_bins of all-empty bins: no count ({gpu})")
+        raise AssertionError("fold_bins counted bins of slots that keep nothing")
+    scratch_clean(fargs[2], "fold_bins of slots that keep nothing")
+    log(f"[14] fold_bins of slots that keep nothing: no count, the scratch all -inf ({gpu})")
 
 
 def check_sweep_path(name: str, captured: dict, gpu: str, timed: bool) -> dict:
@@ -1392,7 +1520,7 @@ L1_STORE_OPERANDS = (2, 3, 4, 5, 8)
 # the same of phase 14's kernels: the contig tables, mini_gpos and the
 # gpos bucket; the gate and identity tables and seq_to_genome
 SWEEP_STORE_OPERANDS = {
-    "l2_plan": (4, 5, 6, 7), "l2_merge": (), "cgi_bins": (7, 8, 9), "fold_bins": (1,),
+    "l2_plan": (4, 5, 6, 7), "l2_merge": (), "cgi_bins": (7, 8, 9), "fold_bins": (2, 3),
 }
 
 
@@ -1542,6 +1670,8 @@ def phase_query(gpu: str, refs, all_queries, unrelated):
         return first, t_first, session, t_park, many, steady, none
 
     (first, t_first, session, t_park, many, steady, none), launches = counted(run)
+    check_scratch(session, "[4] query_many")
+    check_scratch(mapper._device_session(), "[4] query_genome")
 
     qbp = sum(len(q) for q in queries)
     rates = [qbp / 1e6 / t for t in steady]
@@ -1609,6 +1739,7 @@ def phase_mesh(gpu: str, mapper, queries, want):
         return session, first, again, t_first, time.perf_counter() - t0
 
     (session, first, again, t_first, t_steady), launches = counted(run)
+    check_scratch(session, "[5] (2, 2) mesh")
     for qi, (a, b) in enumerate(zip(first, again)):
         if hit_key(a) != hit_key(want[qi]) or hit_key(b) != hit_key(want[qi]):
             raise AssertionError(f"(2, 2) mesh query {qi}: {a} != phase 4 / host engine {want[qi]}")
@@ -1644,6 +1775,7 @@ def phase_pipeline(gpu: str, mapper, queries):
             torch.cuda.set_sync_debug_mode(0)
 
     steady, launches = counted(checked)
+    check_scratch(session, "[6] pipelined groups")
     groups = session.stats["dispatches"] - dispatches
     for qi, (a, b, c) in enumerate(zip(steady, warm, alone)):
         if not (hit_key(a) == hit_key(b) == hit_key(c)) or not c:
@@ -1739,6 +1871,7 @@ def phase_escalation(gpu: str, mapper, queries, want):
         return hits, steps, took
 
     (hits, steps, took), launches = counted(run)
+    check_scratch(session, "[9] escalation (flagged passes included)")
     n = session.stats["budget_escalations"]
     if n < 2 or len(steps) != n:
         raise AssertionError(f"expected at least two escalations, got {n}: {steps}")
@@ -1794,6 +1927,7 @@ def phase_case(gpu: str, mapper, queries, want):
             wall = time.perf_counter() - t0
         finally:
             host.restore()
+        check_scratch(session, f"[11] {name}")
         for qi, (a, b) in enumerate(zip(hits, want)):
             if hit_key(a) != hit_key(b):
                 raise AssertionError(f"{name} query {qi}: {a} != phase 4's uppercase run {b}")
@@ -1913,6 +2047,7 @@ def phase_ava(gpu: str):
 
     (steady, t_steady), launches = counted(steady_run)
     peak = torch.cuda.max_memory_allocated()
+    check_scratch(session, "[10] all-vs-all")
     if [hit_key(h) for h in steady] != [hit_key(h) for h in first]:
         raise AssertionError("all-vs-all: the steady pass differs from the first")
     check_ava_hits(first, n_genomes, "all-vs-all")
@@ -1956,8 +2091,17 @@ def phase_ava(gpu: str):
 
     del session
     torch.cuda.empty_cache()
+    # one query_draft call (the Mapper's one-genome session, q_capacity 1):
+    # the operands of phase 14's `draft` case
+    draft, _, _, _, draft_ops = capture_operands(lambda: mapper.query_draft([genomes[0]]))
+    if hit_key(draft) != hit_key(first[0]):
+        raise AssertionError(f"query_draft g0: {draft} != the all-vs-all's {first[0]}")
+    check_scratch(mapper._device_session(), "[10] query_draft")
+    log(f"[10] query_draft of g0 on the same index: hits equal the all-vs-all's ({gpu})")
+    mapper._session = None
+    torch.cuda.empty_cache()
     phase_ava_four_cards(gpu, mapper, batch, first)
-    return launches, operands, winnow_ops, l1_ops, sweep_ops
+    return launches, operands, winnow_ops, l1_ops, sweep_ops, draft_ops
 
 
 def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
@@ -1991,6 +2135,7 @@ def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
         return hits, time.perf_counter() - t0
 
     (hits, took), launches = counted(run)
+    check_scratch(session, "[10] four-card (1, 4) all-vs-all")
     if [hit_key(h) for h in hits] != [hit_key(h) for h in want]:
         raise AssertionError("four-card (1, 4) all-vs-all differs from the one-card run")
     qbp = sum(len(g[0]) for g in batch)
@@ -2122,12 +2267,14 @@ def main() -> int:
     launches += phase_escalation(gpu, mapper, queries, many)
     launches += phase_case(gpu, mapper, queries, many)
     del mapper, real, real_winnow, real_l1, real_sweep
-    ava_launches, ava_ops, ava_winnow, ava_l1, ava_sweep = phase_ava(gpu)
+    ava_launches, ava_ops, ava_winnow, ava_l1, ava_sweep, draft_sweep = phase_ava(gpu)
     launches += ava_launches
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
     winnow = check_winnow("ava (the all-vs-all's first group)", ava_winnow, gpu)
     cand = check_l1("ava (the all-vs-all's first group)", ava_l1, gpu)
     sweep = check_sweep_path("ava (the all-vs-all's first group)", ava_sweep, gpu, timed=True)
+    check_sweep_path("draft (one query_draft call on the all-vs-all's panel)", draft_sweep, gpu,
+                     timed=True)
     loaded = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")

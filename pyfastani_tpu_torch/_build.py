@@ -159,10 +159,13 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # best, first, last, valid, seq, s_sizes, frag_qg
         ptr, i64, ptr, i64, i64,  # gate, its length, ident, smax_tab, its row stride
         ptr, i64, i64, i64, i64, i64, i64,  # seq_to_genome, C, F, ivmax, cmw, l, bin_max
-        ptr, ptr,  # best_bin, stream
+        ptr, ptr, ptr,  # slot_bin, slot_ident, stream
     ]
     lib.cgi_bins_launch.restype = i32
-    # best_bin, seq_to_genome, q_count, C, bin_max, g_max, out, stream
-    lib.fold_bins_launch.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr, ptr]
+    lib.fold_bins_launch.argtypes = [
+        ptr, ptr, i64, ptr, ptr,  # slot_bin, slot_ident, NS, scratch, seq_to_genome
+        i64, i64, i64, i64, ptr, i64,  # q_count, C, bin_max, g_max, out, its limb stride
+        ptr, i64, i64, ptr, ptr,  # flags, their rows, flags a row, out_flags, stream
+    ]
     lib.fold_bins_launch.restype = i32
     return lib

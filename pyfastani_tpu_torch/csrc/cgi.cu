@@ -15,23 +15,30 @@
 // contig c = clamp(seq[i], 0, C - 1), its genome s2g[c] and its bin
 // clamp(floor((floor((first + last) / 2) + cmw - 1) / l), 0, bin_max - 1).
 // Step 1 keeps, per (fragment, genome), the mapped interval of the
-// largest identity, the first one on a tie; step 2 writes into best_bin
-// (q_count * C * bin_max float32, -inf where no interval lands) the
-// largest kept identity per (query genome frag_qg[f], contig, bin).
+// largest identity, the first one on a tie.  Step 2 writes each
+// interval's slot: a kept one's flat bin frag_qg[f] * C * bin_max + c *
+// bin_max + bin (int64) and its identity, every other one bin -1 and
+// identity -inf.  Nothing dense is written.
 //
-// fold_bins: per (query genome q, contig c), over its bin_max bins b > 0:
-// the count, and the sums of the high and low 12-bit limbs of
-// round(b * 2^17) (half to even), added into row q, column s2g[c] of three
-// (q_count, g_max) int64 outputs.
+// fold_bins: the kept slots of every data row of a shard and the shard's
+// scratch, (q_count * C * bin_max,) float32 bins that hold -inf on entry.
+// Launch A applies each slot's identity to its bin by an atomic max (the
+// pmax over data rows and CGI's max per bin at once), zeroes the three
+// (q_count, g_max) int64 outputs and writes the merged flags.  Launch B
+// exchanges each kept slot's bin with -inf: the one slot that finds a
+// value in it is the bin's first visitor and holds the bin's maximum v; if
+// v > 0 it adds 1 and the high and low 12-bit limbs of round(v * 2^17)
+// (half to even) into row q, column s2g[c] of the outputs.  So the counts
+// and limb sums are the dense fold's over the bins b > 0 in any order, and
+// the scratch is all -inf again when B ends.
 //
-// What bounds them on the card: bytes.  cgi_bins reads each interval's
+// What bounds them on the card: bytes, and few of them.  A dense design
+// fills 56.6 MB of bins a group at the all-vs-all's q 16, C 512,
+// bin_max 1728, merges them through a second buffer and reads them again
+// in the fold: some 340 MB a group.  Here cgi_bins reads each interval's
 // best and flag, a mapped interval's three more words and two table
-// entries, and writes best_bin once (56.6 MB at the
-// all-vs-all's q 16, C 512, bin_max 1728: the fill dominates); fold_bins
-// reads best_bin once.  The plain versions spent their time elsewhere:
-// some 110 torch ops a group, each a launch, among them four segment
-// reductions over tables of F * (g_max + 1) + g_max + 1 slots and the
-// reductions of three (q, C, bin_max) int64 temporaries.
+// entries, and writes 12 bytes a slot; fold_bins reads the slots and
+// touches each occupied bin twice.
 //
 // What the design does about it:
 //   * One warp a fragment, which looks up the fragment's gate once; an
@@ -41,16 +48,18 @@
 //     warp shuffles, 32 at a time (a loop past 32), so no segment table
 //     exists; the tie rule reads interval indices, never an atomic's
 //     order.
-//   * Step 2 is one atomic max a kept interval on the float itself: a
-//     non-negative value by atomicMax on its int bits, a negative one by
-//     atomicMin on its unsigned bits, which orders IEEE floats (-inf
-//     included).  A max is exact in any order.
+//   * Fixed slots, one an interval: no count, no compaction, no host sync.
+//   * The bins are a scratch that persists across passes at -inf: A's
+//     atomic max on the float itself (a non-negative value by atomicMax on
+//     its int bits, a negative one by atomicMin on its unsigned bits, which
+//     orders IEEE floats, -inf included) is exact in any order; B's
+//     exchange both reads the maximum once per bin and restores -inf, so
+//     no pass fills, merges or re-reads the dense bins.
 //   * The flat bin index is 64-bit: a panel of many contigs passes 2^31
 //     bins.
-//   * fold_bins: one block a (query genome, contig) row reduces its bins
-//     in registers and a warp shuffle, and adds its three sums with
-//     integer atomics, exact in any order.
+//   * The limbs add with 64-bit integer atomics, exact in any order.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,6 +68,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kMaxBlocks = 4096;  // the fold's grid-stride launches
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __device__ __forceinline__ long long clamp64(long long x, long long lo, long long hi) {
     return min(max(x, lo), hi);
@@ -112,7 +124,8 @@ cgi_bins_kernel(const long long* __restrict__ best, const long long* __restrict_
                 const int* __restrict__ frag_qg, const int* __restrict__ gate, long long n_gate,
                 const float* __restrict__ ident, long long smax_tab, long long ident_stride,
                 const int* __restrict__ s2g, long long C, long long F, long long ivmax,
-                long long cmw, long long l, long long bin_max, float* __restrict__ best_bin) {
+                long long cmw, long long l, long long bin_max, long long* __restrict__ slot_bin,
+                float* __restrict__ slot_ident) {
     const int lane = threadIdx.x & 31;
     const long long f = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
     if (f >= F) return;  // the whole warp leaves together
@@ -148,62 +161,71 @@ cgi_bins_kernel(const long long* __restrict__ best, const long long* __restrict_
                     keep = false;
             }
         }
-        if (keep) atomic_max_float(best_bin + me.bin, me.ident);
+        if (mine < ivmax) {
+            slot_bin[i0 + mine] = keep ? me.bin : -1;
+            slot_ident[i0 + mine] = keep ? me.ident : neg_inf();
+        }
     }
 }
 
 __global__ void __launch_bounds__(kThreads)
-fold_bins_kernel(const float* __restrict__ best_bin, const int* __restrict__ s2g, long long C,
-                 long long bin_max, long long g_max, long long q_stride,
-                 unsigned long long* __restrict__ out) {
-    __shared__ long long part[3][kWarps];
-    const long long row = blockIdx.x;  // q * C + c
-    const long long q = row / C, c = row % C;
-    const float* bins = best_bin + row * bin_max;
-    long long n = 0, hi = 0, lo = 0;
-    for (long long b = threadIdx.x; b < bin_max; b += kThreads) {
-        const float v = bins[b];
-        if (v > 0.0f) {
-            const long long q17 = __float2ll_rn(v * 131072.0f);
-            n += 1;
-            hi += q17 >> 12;
-            lo += q17 & 0xFFF;
-        }
+fold_scatter_kernel(const long long* __restrict__ slot_bin, const float* __restrict__ slot_ident,
+                    long long NS, float* __restrict__ scratch, long long G, long long limb_stride,
+                    unsigned long long* __restrict__ out, const int* __restrict__ flags,
+                    long long n_flag_rows, long long n_flags, long long* __restrict__ out_flags) {
+    const long long step = static_cast<long long>(gridDim.x) * kThreads;
+    const long long t0 = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+    for (long long i = t0; i < NS; i += step) {
+        const long long b = slot_bin[i];
+        if (b >= 0) atomic_max_float(scratch + b, slot_ident[i]);
     }
-    for (int o = 16; o > 0; o >>= 1) {
-        n += __shfl_down_sync(kFull, n, o);
-        hi += __shfl_down_sync(kFull, hi, o);
-        lo += __shfl_down_sync(kFull, lo, o);
+    for (long long i = t0; i < 3 * G; i += step) out[(i / G) * limb_stride + i % G] = 0;
+    if (t0 < n_flags) {
+        long long m = 0;
+        for (long long r = 0; r < n_flag_rows; ++r)
+            m = max(m, static_cast<long long>(flags[r * n_flags + t0]));
+        out_flags[t0] = m;
     }
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-        part[0][warp] = n;
-        part[1][warp] = hi;
-        part[2][warp] = lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fold_visit_kernel(const long long* __restrict__ slot_bin, long long NS, float* __restrict__ scratch,
+                  const int* __restrict__ s2g, long long C, long long bin_max, long long g_max,
+                  long long limb_stride, unsigned long long* __restrict__ out) {
+    const long long step = static_cast<long long>(gridDim.x) * kThreads;
+    for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < NS;
+         i += step) {
+        const long long b = slot_bin[i];
+        if (b < 0) continue;
+        // the bin's first visitor takes its maximum and leaves -inf behind
+        const float v = atomicExch(scratch + b, neg_inf());
+        if (!(v > 0.0f)) continue;
+        const long long row = b / bin_max;  // q * C + c
+        const long long key = (row / C) * g_max + s2g[row % C];
+        const long long q17 = __float2ll_rn(v * 131072.0f);
+        atomicAdd(out + key, 1ULL);
+        atomicAdd(out + limb_stride + key, static_cast<unsigned long long>(q17 >> 12));
+        atomicAdd(out + 2 * limb_stride + key, static_cast<unsigned long long>(q17 & 0xFFF));
     }
-    __syncthreads();
-    if (threadIdx.x < 3) {
-        long long t = 0;
-        for (int w = 0; w < kWarps; ++w) t += part[threadIdx.x][w];
-        if (t != 0)
-            atomicAdd(out + threadIdx.x * q_stride + q * g_max + s2g[c],
-                      static_cast<unsigned long long>(t));
-    }
+}
+
+long long fold_grid(long long n) {
+    return std::max(1LL, std::min((n + kThreads - 1) / kThreads, kMaxBlocks));
 }
 
 }  // namespace
 
 extern "C" {
 
-// best_bin (q_count * C * bin_max,) float32, filled with -inf by the
-// caller, from the intervals of F fragments (see the top of the file), on
-// `stream`.  Returns cudaGetLastError().
+// The slots (F * ivmax,) int64 slot_bin and float32 slot_ident of the
+// intervals of F fragments (see the top of the file), on `stream`.
+// Returns cudaGetLastError().
 int cgi_bins_launch(const void* best, const void* first, const void* last, const void* valid,
                     const void* seq, const void* s_sizes, const void* frag_qg, const void* gate,
                     long long n_gate, const void* ident, long long smax_tab,
                     long long ident_stride, const void* s2g, long long C, long long F,
                     long long ivmax, long long cmw, long long l, long long bin_max,
-                    void* best_bin, void* stream) {
+                    void* slot_bin, void* slot_ident, void* stream) {
     if (F <= 0 || ivmax <= 0) return 0;
     if (n_gate < 1 || smax_tab < 0 || C < 1 || l < 1 || bin_max < 1)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -214,21 +236,37 @@ int cgi_bins_launch(const void* best, const void* first, const void* last, const
         static_cast<const long long*>(seq), static_cast<const int*>(s_sizes),
         static_cast<const int*>(frag_qg), static_cast<const int*>(gate), n_gate,
         static_cast<const float*>(ident), smax_tab, ident_stride, static_cast<const int*>(s2g), C,
-        F, ivmax, cmw, l, bin_max, static_cast<float*>(best_bin));
+        F, ivmax, cmw, l, bin_max, static_cast<long long*>(slot_bin),
+        static_cast<float*>(slot_ident));
     return static_cast<int>(cudaGetLastError());
 }
 
-// out (3, q_count, g_max) int64, zeroed by the caller: the occupied-bin
-// counts and the two limb sums of best_bin (q_count * C * bin_max,), on
-// `stream`.  Returns cudaGetLastError().
-int fold_bins_launch(const void* best_bin, const void* s2g, long long q_count, long long C,
-                     long long bin_max, long long g_max, void* out, void* stream) {
-    if (q_count <= 0 || C <= 0 || bin_max <= 0) return 0;
-    if (q_count * C > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    fold_bins_kernel<<<static_cast<unsigned>(q_count * C), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(best_bin), static_cast<const int*>(s2g), C, bin_max, g_max,
-        q_count * g_max, static_cast<unsigned long long*>(out));
+// The fold of NS slots (slot_bin, slot_ident) through `scratch` (-inf on
+// entry and on return) into out, three rows of q_count * g_max int64,
+// limb_stride apart, and the max of n_flag_rows rows of n_flags int32
+// flags into out_flags (int64; none when n_flags is 0), on `stream`: two
+// launches.  Returns cudaGetLastError().
+int fold_bins_launch(const void* slot_bin, const void* slot_ident, long long NS, void* scratch,
+                     const void* s2g, long long q_count, long long C, long long bin_max,
+                     long long g_max, void* out, long long limb_stride, const void* flags,
+                     long long n_flag_rows, long long n_flags, void* out_flags, void* stream) {
+    if (C < 1 || bin_max < 1 || q_count < 0 || g_max < 0 || NS < 0 || n_flags > kThreads)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long G = q_count * g_max;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const long long* bins = static_cast<const long long*>(slot_bin);
+    if (NS > 0 || G > 0 || n_flags > 0) {
+        fold_scatter_kernel<<<fold_grid(std::max({NS, 3 * G, n_flags})), kThreads, 0, st>>>(
+            bins, static_cast<const float*>(slot_ident), NS, static_cast<float*>(scratch), G,
+            limb_stride, static_cast<unsigned long long*>(out), static_cast<const int*>(flags),
+            n_flag_rows, n_flags, static_cast<long long*>(out_flags));
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (NS > 0)
+        fold_visit_kernel<<<fold_grid(NS), kThreads, 0, st>>>(
+            bins, NS, static_cast<float*>(scratch), static_cast<const int*>(s2g), C, bin_max,
+            g_max, limb_stride, static_cast<unsigned long long*>(out));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,23 +5,28 @@ Port of the tail of ``pyfastani_tpu/parallel/sharded.py::_query_block_impl``
 ``ShardedSession``'s ``block_fn``:
 
 * `cgi_bins` gates every candidate interval on its best shared count,
-  looks up its float32 identity in the host-exact ``(smax+1)^2`` table,
+  looks up its float32 identity in the host-exact ``(smax+1)^2`` table and
   keeps one best mapping per (fragment, genome) -- the largest identity,
   ties to the first interval in (seqId, pos) order, the rule of the host
-  ``compute_cgi`` -- and reduces them into the dense per-(query genome,
-  contig, bin) best identity, ``-inf`` where empty;
-* `fold_bins` reduces those bins per (query genome, genome) to the
-  occupied-bin count and the identity sum as exact fixed-point integers
-  (the 2^17 grid of ``_engine_np.mean_identity``) in two 12-bit limbs, so
-  the sum cannot depend on the reduction order.
+  ``compute_cgi``.  It returns one slot an interval: a kept mapping's flat
+  (query genome, contig, bin) index and identity, ``-1`` and ``-inf``
+  elsewhere.  The JAX package's dense best identity per bin is the max of
+  the slots into ``-inf`` bins;
+* `fold_bins` reduces the slots of a shard's data rows per (query genome,
+  genome) to the occupied-bin count and the identity sum as exact
+  fixed-point integers (the 2^17 grid of ``_engine_np.mean_identity``) in
+  two 12-bit limbs, so the sum cannot depend on the reduction order.  It
+  works through a persistent ``-inf`` scratch of the dense bins: the slots'
+  max goes in, each touched bin is read once by its first visitor and left
+  ``-inf`` again, so no dense pass is made.
 
 Each wrapper launches a hand-written CUDA kernel for CUDA tensors
-(``csrc/cgi.cu``: one warp a fragment; one block a (query genome, contig)
-row) and takes its plain version, `cgi_bins_reference` or
+(``csrc/cgi.cu``: one warp a fragment; the fold's scatter and visit, one
+thread a slot) and takes its plain version, `cgi_bins_reference` or
 `fold_bins_reference`, for CPU tensors; any other device raises.
 ``<wrapper>_launches`` and ``<wrapper>_reference_calls`` count
-kernel-route calls and runs of the plain version.  Both routes agree bitwise: the bins
-(``-inf`` included) whenever the pass raised no flag, the fold always.
+kernel-route calls and runs of the plain version.  Both routes agree
+bitwise: the slots whenever the pass raised no flag, the fold always.
 """
 
 from __future__ import annotations
@@ -43,9 +48,10 @@ def cgi_bins(
     gate_table, ident_table, seq_to_genome,
     cmw: int, l: int, ivmax: int, bin_max: int, g_max: int, q_count: int,
 ):
-    """``(q_count * C * bin_max,)`` float32 best identity per (query genome,
-    contig, bin) after the reciprocal filter, ``-inf`` where no mapping
-    lands.
+    """``(slot_bin, slot_ident)``: each interval's kept mapping after the
+    reciprocal filter, ``(F * ivmax,)`` each, the int64 flat bin ``qg * C *
+    bin_max + c * bin_max + b`` (query genome, contig, bin) and the float32
+    identity; ``-1`` and ``-inf`` where the interval keeps nothing.
 
     Args:
         best, first, last: ``(F * ivmax,)`` int64 per interval (`ops.l2_sweep.l2_merge`);
@@ -90,16 +96,17 @@ def cgi_bins(
         t.contiguous() for t in (best, first, last, iv_valid, iv_seq, s_sizes, frag_qg,
                                  gate_table, ident_table, seq_to_genome)
     )
-    best_bin = torch.full((q_count * C * bin_max,), -np.inf, dtype=torch.float32, device=dev)
+    slot_bin = torch.empty(F * ivmax, dtype=torch.int64, device=dev)
+    slot_ident = torch.empty(F * ivmax, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         raise_on("cgi_bins", lib.cgi_bins_launch(
             ptr(best), ptr(first), ptr(last), ptr(iv_valid), ptr(iv_seq), ptr(s_sizes),
             ptr(frag_qg), ptr(gate_table), gate_table.shape[0], ptr(ident_table),
             ident_table.shape[0] - 1, ident_table.shape[1], ptr(s2g), C, F, ivmax, cmw, l,
-            bin_max, ptr(best_bin), current_stream(dev),
+            bin_max, ptr(slot_bin), ptr(slot_ident), current_stream(dev),
         ))
     cgi_bins_launches += 1
-    return best_bin
+    return slot_bin, slot_ident
 
 
 def cgi_bins_reference(
@@ -140,60 +147,107 @@ def cgi_bins_reference(
     first_iv = segment(torch.where(tied, iv_arange, NIV), fg, n_seg, "amin", I32_MAX)
     keep1 = tied & (iv_arange == first_iv[fg])
 
-    # CGI step 2: dense per-(query genome, contig, bin) best identity
+    # CGI step 2: each kept mapping's (query genome, contig, bin)
     qg_of_iv = frag_qg[frag_of_iv].to(i64)
-    n_bins = q_count * C * bin_max
-    cbin = torch.where(keep1, qg_of_iv * (C * bin_max) + seq_c * bin_max + rbin, n_bins)
-    best_bin = segment(torch.where(keep1, ident, -1.0), cbin, n_bins + 1, "amax", -np.inf)
-    return best_bin[:n_bins]
+    cbin = qg_of_iv * (C * bin_max) + seq_c * bin_max + rbin
+    return torch.where(keep1, cbin, -1), torch.where(keep1, ident, -np.inf)
 
 
-def fold_bins(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
+def _fold_outputs(dev, out, flags, out_flags, q_count: int, g_max: int):
+    """The flags' row length, after checking ``out`` (``(3, q_count,
+    g_max)`` int64 on ``dev`` whose rows are contiguous, any stride between
+    the three), ``flags`` (int32, rows of ``out_flags``'s length) and
+    ``out_flags`` (1-D int64), both or neither."""
+    if (out.shape != (3, q_count, g_max) or out.dtype != torch.int64 or out.device != dev
+            or (q_count * g_max and (out.stride(2) != 1 or out.stride(1) != g_max))):
+        raise TypeError(f"out must be a (3, {q_count}, {g_max}) int64 tensor on {dev} "
+                        "with contiguous rows")
+    if (flags is None) != (out_flags is None):
+        raise ValueError("fold_bins takes flags and out_flags together")
+    if flags is None:
+        return 0
+    n = out_flags.shape[0] if out_flags.dim() == 1 else -1
+    if (out_flags.dtype != torch.int64 or out_flags.device != dev or n < 0
+            or flags.dtype != torch.int32 or flags.device != dev or flags.shape[-1] != n
+            or flags.dim() > 2 or not flags.is_contiguous()):
+        raise TypeError(f"flags must be contiguous int32 rows and out_flags 1-D int64 of "
+                        f"their length, on {dev}")
+    return n
+
+
+def fold_bins(slot_bin, slot_ident, scratch, seq_to_genome, q_count: int, bin_max: int,
+              g_max: int, out, flags=None, out_flags=None):
     """Per-(query genome, genome) occupied-bin counts and identity sums
-    of ``best_bin`` (`cgi_bins`, merged over the data rows), whose contigs'
-    genomes ``seq_to_genome`` gives: ``(counts, isum_hi, isum_lo)``, each
-    ``(q_count, g_max)`` int64, the sums of the high and low 12-bit limbs of
-    ``round(b * 2^17)`` over the bins ``b > 0``."""
+    of the slots (`cgi_bins`) of a shard's data rows: ``(counts, isum_hi,
+    isum_lo)``, views of ``out``, each ``(q_count, g_max)`` int64, the sums
+    of the high and low 12-bit limbs of ``round(b * 2^17)`` over the bins'
+    maxima ``b > 0``.
+
+    Args:
+        slot_bin, slot_ident: ``(NS,)`` int64 and float32 slots.
+        scratch: ``(q_count * C * bin_max,)`` float32 bins; a bin the
+            slots touch enters its max and holds ``-inf`` again on return,
+            so a scratch that is all ``-inf`` stays so.
+        seq_to_genome: ``(C,)`` int32 genome of each contig.
+        out: where the three outputs go, ``(3, q_count, g_max)`` int64
+            with contiguous rows; zeroed first.
+        flags, out_flags: optional; ``out_flags`` (1-D int64) receives the
+            max over the rows of ``flags`` (int32) and 0, in the same launch.
+    """
     global fold_bins_launches
-    dev = cuda_device("fold_bins", best_bin)
+    dev = cuda_device("fold_bins", slot_bin)
     if dev is None:
-        return fold_bins_reference(best_bin, seq_to_genome, q_count, bin_max, g_max)
-    C = seq_to_genome.shape[0]
-    check("best_bin", dev, torch.float32, best_bin, q_count * C * bin_max)
+        return fold_bins_reference(slot_bin, slot_ident, scratch, seq_to_genome, q_count,
+                                   bin_max, g_max, out, flags, out_flags)
+    NS, C = slot_bin.shape[0], seq_to_genome.shape[0]
+    check("slot_bin", dev, torch.int64, slot_bin)
+    check("slot_ident", dev, torch.float32, slot_ident, NS)
+    check("scratch", dev, torch.float32, scratch, q_count * C * bin_max)
     check("seq_to_genome", dev, torch.int32, seq_to_genome, C)
+    if not scratch.is_contiguous():
+        raise ValueError("scratch must be contiguous: the fold writes it in place")
+    n_flags = _fold_outputs(dev, out, flags, out_flags, q_count, g_max)
 
     from .._build import load_library
 
     lib = load_library()
-    best_bin, s2g = best_bin.contiguous(), seq_to_genome.contiguous()
-    out = torch.zeros((3, q_count, g_max), dtype=torch.int64, device=dev)
+    slot_bin, slot_ident, s2g = (t.contiguous() for t in (slot_bin, slot_ident, seq_to_genome))
     with torch.cuda.device(dev):
         raise_on("fold_bins", lib.fold_bins_launch(
-            ptr(best_bin), ptr(s2g), q_count, C, bin_max, g_max, ptr(out), current_stream(dev),
+            ptr(slot_bin), ptr(slot_ident), NS, ptr(scratch), ptr(s2g), q_count, C, bin_max,
+            g_max, ptr(out), out.stride(0),
+            ptr(flags) if n_flags else None, flags.numel() // n_flags if n_flags else 0,
+            n_flags, ptr(out_flags) if n_flags else None, current_stream(dev),
         ))
     fold_bins_launches += 1
     return out.unbind(0)
 
 
-def fold_bins_reference(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
-    """The plain torch version of `fold_bins` (same arguments and result)."""
+def fold_bins_reference(slot_bin, slot_ident, scratch, seq_to_genome, q_count: int,
+                        bin_max: int, g_max: int, out, flags=None, out_flags=None):
+    """The plain torch version of `fold_bins` (same arguments and result,
+    the scratch left as the kernels leave it)."""
     global fold_bins_reference_calls
     fold_bins_reference_calls += 1
-    dev = best_bin.device
+    dev = slot_bin.device
+    n_flags = _fold_outputs(dev, out, flags, out_flags, q_count, g_max)
+    out.zero_()
+    if n_flags:
+        out_flags.copy_(flags.reshape(-1, n_flags).amax(0).clamp(min=0))
+    kept = slot_bin >= 0
+    bins = slot_bin[kept]
+    # the max over the slots (and the data rows) per bin, then each touched
+    # bin read once and left -inf
+    scratch.scatter_reduce_(0, bins, slot_ident[kept], "amax")
+    bins = torch.unique(bins)
+    v = scratch[bins]
+    scratch[bins] = -np.inf
+    occ = v > 0.0
+    bins, v = bins[occ], v[occ]
     C = seq_to_genome.shape[0]
-    bb3 = best_bin.reshape(q_count, C, bin_max)
-    occ = bb3 > 0.0
-    q17 = torch.round(torch.where(occ, bb3, 0.0) * 131072.0).to(torch.int64)
-    key = (
-        torch.arange(q_count, device=dev)[:, None] * g_max + seq_to_genome.to(torch.int64)
-    ).reshape(-1)
-
-    def fold(x_qc):
-        out = torch.zeros(q_count * g_max, dtype=torch.int64, device=dev)
-        return out.index_add_(0, key, x_qc.reshape(-1)).reshape(q_count, g_max)
-
-    return (
-        fold(occ.sum(dim=2)),
-        fold((q17 >> 12).sum(dim=2)),
-        fold((q17 & 0xFFF).sum(dim=2)),
-    )
+    row = torch.div(bins, bin_max, rounding_mode="floor")
+    key = torch.div(row, C, rounding_mode="floor") * g_max + seq_to_genome[row % C].to(torch.int64)
+    q17 = torch.round(v * 131072.0).to(torch.int64)
+    for limb, x in zip(out, (torch.ones_like(q17), q17 >> 12, q17 & 0xFFF)):
+        limb.view(-1).index_add_(0, key, x)
+    return out.unbind(0)

@@ -13,14 +13,17 @@ has four stages:
    chunk plan (`ops.l2_sweep.l2_plan`), the per-chunk evaluator
    `ops.l2.l2_chunks` and the merge per interval
    (`ops.l2_sweep.l2_merge`);
-4. the identity gate and the two CGI reductions (`ops.cgi.cgi_bins`).
+4. the identity gate and the two CGI reductions (`ops.cgi.cgi_bins`),
+   which leave each interval's kept mapping in a fixed slot.
 
 Each stage's wrapper launches a CUDA kernel for CUDA tensors and runs its
-plain torch version for CPU tensors.  The cells' per-bin best identities
-merge by an elementwise max over the data rows of each shard (the JAX
-package's ``pmax``; across processes one ``all_reduce(MAX)``), and an
-exact fixed-point identity fold (`_fold`, `ops.cgi.fold_bins`) reduces
-each shard to per-genome sums.
+plain torch version for CPU tensors.  The cells' slots meet on one merge
+device (across processes through ``all_gather``), and an exact fixed-point
+identity fold (`_fold`, `ops.cgi.fold_bins`) reduces each shard's slots
+to per-genome sums through a persistent ``-inf`` scratch of the dense
+per-(query genome, contig, bin) bins: the max over the data rows (the JAX
+package's ``pmax``) goes in, and each touched bin is read once and left
+``-inf``, so no pass fills, merges or re-reads the dense bins.
 
 Passes are pipelined: fragments stage as the raw bytes of the input
 into two recycled host slots (pinned for CUDA devices) and copy to the
@@ -123,11 +126,12 @@ def _query_block(
 
     ``frag_qg`` assigns each fragment row to one of ``q_count`` query
     genomes, so a group of genomes maps in one pass.  Returns
-    ``(best_bin, flags)``: the ``(q_count * C * bin_max,)`` float32 best
-    identity per (query genome, contig, bin) after the reciprocal filter,
-    and six 0/1 int32 flags: the budget overflows (smax, hmax, ivmax,
-    t_chunks, rmax), then the L2 range flag (`ops.l2.l2_chunks`).  No
-    operation waits for the device.
+    ``((slot_bin, slot_ident), flags)``: each interval's kept mapping after
+    the reciprocal filter (`ops.cgi.cgi_bins`: its flat (query genome,
+    contig, bin) index and identity, ``-1`` and ``-inf`` where none), and
+    six 0/1 int32 flags: the budget overflows (smax, hmax, ivmax, t_chunks,
+    rmax), then the L2 range flag (`ops.l2.l2_chunks`).  No operation waits
+    for the device.
     """
     F = frags.shape[0]
     cmw = l - (k - 1)
@@ -152,22 +156,27 @@ def _query_block(
         [f.to(torch.int32) for f in (s_overflow, ovf_hits, ovf_iv, ovf_ch, ovf_r, range_bad)]
     )
 
-    best_bin = cgi_bins(
+    slots = cgi_bins(
         best, first, last, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table,
         idx["seq_to_genome"], cmw, l, ivmax, bin_max, g_max, q_count,
     )
-    return best_bin, flags
+    return slots, flags
 
 
-def _fold(best_bin, seq_to_genome, q_count: int, bin_max: int, g_max: int):
-    """Per-(query genome, genome) occupied-bin counts and identity sums.
+def _fold(slot_bin, slot_ident, scratch, seq_to_genome, q_count: int, bin_max: int, g_max: int,
+          out, flags=None, out_flags=None):
+    """Per-(query genome, genome) occupied-bin counts and identity sums of
+    one shard's slots, through its ``-inf`` scratch bins, which it leaves
+    ``-inf`` (`ops.cgi.fold_bins`; with ``flags``, their merge into
+    ``out_flags`` too).
 
     Identities accumulate as exact fixed-point integers (the 2^17 grid of
     ``_engine_np.mean_identity``) in 12-bit limbs, so the sum cannot
     depend on the reduction order.  Returns ``(counts, isum_hi, isum_lo)``,
     each ``(q_count, g_max)`` int64.
     """
-    return fold_bins(best_bin, seq_to_genome, q_count, bin_max, g_max)
+    return fold_bins(slot_bin, slot_ident, scratch, seq_to_genome, q_count, bin_max, g_max,
+                     out, flags, out_flags)
 
 
 def _checkpoint_params(index: ShardedIndex, params):
@@ -258,6 +267,15 @@ class ShardedSession:
         else:
             self._merge_dev = torch.device("cuda", torch.cuda.current_device())
         self._s2g = torch.from_numpy(sidx.seq_to_genome).to(self._merge_dev)
+        # each shard's dense (query genome, contig, bin) bins: a scratch that
+        # every fold leaves -inf.  None of q_capacity, C and bin_max
+        # escalates.  A pass stopped inside a fold leaves it dirty, and the
+        # next pass fills it again
+        n_bins = self.q_capacity * sidx.seq_to_genome.shape[1] * self.budgets["bin_max"]
+        self._scratch = torch.full(
+            (self.n_shard, n_bins), -np.inf, dtype=torch.float32, device=self._merge_dev
+        )
+        self._scratch_dirty = False
         # pinned host staging needs CUDA; a CPU-only mesh stages in plain
         # host tensors, which its cells read in place
         self._pinned = any(dev.type == "cuda" for dev in self._devices)
@@ -427,16 +445,9 @@ class ShardedSession:
                     events[-1].record(torch.cuda.current_stream(dev))
             self._slots[slot][2] = events
 
-        C = sidx.seq_to_genome.shape[1]
-        n_bins = self.q_capacity * C * b["bin_max"]
-        merged = torch.full(
-            (self.n_shard * n_bins + _N_FLAGS,), -np.inf, dtype=torch.float32,
-            device=self._merge_dev,
-        )
-        merged[-_N_FLAGS:] = 0
-        flags = merged[-_N_FLAGS:]
+        cells = {}
         for d, sh, dev in self._cells:
-            best_bin, cell_flags = _query_block(
+            cells[d, sh] = _query_block(
                 *inputs[dev, d], self._idx[dev, sh], int(sidx.freq_threshold[sh]),
                 *self._tabs[dev], self._ident_tab[dev],
                 params.kmer_size, params.window_size, params.min_read_length,
@@ -445,23 +456,55 @@ class ShardedSession:
                 self._g_max, b["bin_max"], b["smax"], self.q_capacity,
                 sidx.bucket_steps, m_values, sidx.gpos_shift, sidx.gpos_steps,
             )
-            # the pmax over data rows: 0/1 flags merge by max too
-            out = merged[sh * n_bins : (sh + 1) * n_bins]
-            torch.maximum(out, best_bin.to(self._merge_dev, non_blocking=True), out=out)
-            cell_flags = cell_flags.to(self._merge_dev, non_blocking=True)
-            torch.maximum(flags, cell_flags.to(torch.float32), out=flags)
-        if self.mesh.distributed:
-            # cells this process does not run hold -inf: one collective is
-            # both the pmax over data and the gather of the shards
-            torch.distributed.all_reduce(merged, op=torch.distributed.ReduceOp.MAX)
-        folds = [
-            _fold(merged[sh * n_bins : (sh + 1) * n_bins], self._s2g[sh],
-                  self.q_capacity, b["bin_max"], self._g_max)
-            for sh in range(self.n_shard)
-        ]
-        return torch.cat(
-            [torch.stack(part).reshape(-1) for part in zip(*folds)] + [flags.to(torch.int64)]
+        slots, flags = self._merge(cells, Fd * b["ivmax"])
+
+        G = self.q_capacity * self._g_max
+        packed = torch.empty(
+            (3 * self.n_shard * G + _N_FLAGS,), dtype=torch.int64, device=self._merge_dev
         )
+        limbs = packed[:-_N_FLAGS].view(3, self.n_shard, self.q_capacity, self._g_max)
+        if self._scratch_dirty:
+            self._scratch.fill_(-np.inf)
+        self._scratch_dirty = True
+        for sh in range(self.n_shard):
+            merged = (flags, packed[-_N_FLAGS:]) if sh == 0 else (None, None)
+            _fold(*slots[sh], self._scratch[sh], self._s2g[sh], self.q_capacity, b["bin_max"],
+                  self._g_max, limbs[:, sh], *merged)
+        self._scratch_dirty = False
+        return packed
+
+    def _merge(self, cells, n_slots: int):
+        """The cells' outputs ``{(d, sh): ((slot_bin, slot_ident), flags)}``
+        on the merge device: each shard's slots over its data rows, and the
+        flags' rows (int32, ``(6,)`` or ``(rows, 6)``).  Across processes
+        every cell's ``n_slots`` slots and every process's flags gather to
+        every process, the slots of cells a process does not run empty
+        (bin ``-1``).  Nothing here waits for a device."""
+        dev = self._merge_dev
+        if self.mesh.distributed:
+            shape = (self.n_data, self.n_shard, n_slots)
+            bins = torch.full(shape, -1, dtype=torch.int64, device=dev)
+            idents = torch.zeros(shape, dtype=torch.float32, device=dev)
+            flags = torch.zeros(_N_FLAGS, dtype=torch.int32, device=dev)
+            for (d, sh), ((slot_bin, slot_ident), cell_flags) in cells.items():
+                bins[d, sh] = slot_bin
+                idents[d, sh] = slot_ident
+                torch.maximum(flags, cell_flags.to(dev), out=flags)
+            world = torch.distributed.get_world_size()
+            parts = []
+            for t in (bins, idents, flags):
+                parts.append([torch.empty_like(t) for _ in range(world)])
+                torch.distributed.all_gather(parts[-1], t)
+            bins, idents, flags = (torch.stack(p) for p in parts)
+            return [(bins[:, :, sh].reshape(-1), idents[:, :, sh].reshape(-1))
+                    for sh in range(self.n_shard)], flags
+        by_shard = [[] for _ in range(self.n_shard)]
+        for (_, sh), (slots, _) in cells.items():
+            by_shard[sh].append([t.to(dev, non_blocking=True) for t in slots])
+        slots = [parts[0] if len(parts) == 1 else [torch.cat(c) for c in zip(*parts)]
+                 for parts in by_shard]
+        flags = [f.to(dev, non_blocking=True) for _, f in cells.values()]
+        return slots, flags[0] if len(flags) == 1 else torch.stack(flags)
 
     def _read_back(self, packed):
         """Copy every pass's packed outputs to host memory behind one event

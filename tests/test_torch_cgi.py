@@ -3,14 +3,18 @@
 The port's ``_query_block`` runs on the CPU with its call of
 ``cgi_bins`` recorded (``tests/test_torch_l2_sweep.run_block``); the
 plain versions, `cgi_bins_reference` on the recorded operands and
-`fold_bins_reference` on its bins, are held against the JAX package's
+`fold_bins_reference` on its slots, are held against the JAX package's
 ``_query_block`` (``use_pallas=False``) and its ``block_fn`` fold (its
-statements, run from the package's source), at ``q_count`` 1 and 2, and
-on a panel whose genome holds a repeat, so that a fragment maps twice to
-one genome at one identity and the tie rule (the first interval) decides
-its bin.  The synthetic cases of
-``chip_smoke.CGI_CASES`` are held against a NumPy transcription of the
-same rules.  Every comparison is exact.
+statements, run from the package's source): the slots' max into ``-inf``
+bins (``chip_smoke.densify``) against JAX's dense ``best_bin``, the fold's
+counts and limb sums against JAX's, at ``q_count`` 1 and 2 on two panels,
+and on a panel whose genome holds a repeat, so that a fragment maps twice
+to one genome at one identity and the tie rule (the first interval)
+decides its bin.  The synthetic cases of ``chip_smoke.CGI_CASES`` are
+held against a NumPy transcription of the same rules.  The fold's own
+cases (equal identities of two fragments in one bin, two data rows of one
+shard, a flagged pass, a scratch left dirty by a stopped pass) check that
+it leaves its scratch all ``-inf``.  Every comparison is exact.
 """
 
 import inspect
@@ -24,8 +28,11 @@ import jax
 import jax.numpy as jnp
 from pyfastani_tpu.parallel import sharded as jsh
 
-from chip_smoke import CGI_CASES, cgi_case, fold_args, torch_args
+from chip_smoke import (
+    CGI_CASES, cgi_bins_count, cgi_case, densify, fold_args, second_row, torch_args,
+)
 from pyfastani_tpu_torch.ops.cgi import cgi_bins_reference, fold_bins_reference
+from pyfastani_tpu_torch import session as S
 from tests.test_torch_l2_sweep import draft_panel, run_block, tiny_panel
 
 
@@ -62,8 +69,8 @@ def _kept(args):
     return mapped, ident, gid, kept
 
 
-def _numpy_bins(args):
-    """NumPy transcription of `cgi_bins`."""
+def _numpy_slots(args):
+    """NumPy transcription of `cgi_bins`: ``(slot_bin, slot_ident)``."""
     best, first, last, valid, seq, s, qg, gate, ident_t, s2g, cmw, l, ivmax, bin_max, _, q = (
         a.numpy() if isinstance(a, torch.Tensor) else a for a in args
     )
@@ -71,25 +78,55 @@ def _numpy_bins(args):
     C = s2g.shape[0]
     rbin = np.clip(((first + last) // 2 + cmw - 1) // l, 0, bin_max - 1)
     cbin = np.repeat(qg, ivmax).astype(np.int64) * C * bin_max + np.clip(seq, 0, C - 1) * bin_max + rbin
-    out = np.full(q * C * bin_max, -np.inf, np.float32)
-    np.maximum.at(out, cbin[kept], ident[kept])
+    return np.where(kept, cbin, -1), np.where(kept, ident, np.float32(-np.inf))
+
+
+def _numpy_bins(args):
+    """The dense bins of `_numpy_slots`: their max into ``-inf`` bins."""
+    slot_bin, slot_ident = _numpy_slots(args)
+    out = np.full(cgi_bins_count(args), -np.inf, np.float32)
+    kept = slot_bin >= 0
+    np.maximum.at(out, slot_bin[kept], slot_ident[kept])
     return out
 
 
+def _numpy_fold(bins, s2g, q, bin_max, g_max):
+    """NumPy transcription of the dense fold: ``(counts, hi, lo)``."""
+    bb = bins.reshape(q, -1, bin_max)
+    occ = bb > 0
+    q17 = np.where(occ, np.rint(np.where(occ, bb, 0) * np.float32(131072)), 0).astype(np.int64)
+    key = (np.arange(q)[:, None] * g_max + s2g[None, :]).reshape(-1)
+    out = []
+    for part in (occ.sum(2), (q17 >> 12).sum(2), (q17 & 0xFFF).sum(2)):
+        want = np.zeros(q * g_max, np.int64)
+        np.add.at(want, key, part.reshape(-1))
+        out.append(want.reshape(q, g_max))
+    return out
+
+
+def _assert_fold(fold, want):
+    for name, g, w in zip(["counts", "isum_hi", "isum_lo"], fold, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("panel", ["tiny", "draft"])
 @pytest.mark.parametrize("q_count", [1, 2])
-def test_cgi_bins_and_fold_match_jax(monkeypatch, q_count):
-    mapper, frags = tiny_panel()
+def test_cgi_bins_and_fold_match_jax(monkeypatch, panel, q_count):
+    mapper, frags = tiny_panel() if panel == "tiny" else draft_panel()
     sidx, b, calls, (best_bin, _) = run_block(monkeypatch, mapper, frags, q_count)
     args = calls["cgi_bins"]
     got = cgi_bins_reference(*args)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(best_bin))
-    assert int(torch.isfinite(got).sum()) > 0
+    for g, w in zip(got, _numpy_slots(args)):
+        np.testing.assert_array_equal(g.numpy(), w)
+    dense = densify(got, cgi_bins_count(args))
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(best_bin))
+    assert int(torch.isfinite(dense).sum()) > 0
     g_max = int(sidx.genome_lengths.shape[1])
     want = _jax_fold(best_bin, jnp.asarray(sidx.seq_to_genome[0]), q_count, b["bin_max"], g_max)
-    fold = fold_bins_reference(got, args[9], q_count, b["bin_max"], g_max)
-    for name, g, w in zip(["counts", "isum_hi", "isum_lo"], fold, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    assert int(fold[0].sum()) > 0
+    fargs = fold_args(got, args)
+    fold = fold_bins_reference(*fargs)
+    _assert_fold(fold, want)
+    assert int(fold[0].sum()) > 0 and bool(torch.isneginf(fargs[2]).all())
 
 
 def test_tied_intervals_match_jax(monkeypatch):
@@ -107,8 +144,9 @@ def test_tied_intervals_match_jax(monkeypatch):
         ties += sum(int(np.sum(m & (g == g0) & (i == i0)) > 1) for g0, i0 in zip(g[m], i[m]))
     assert ties > 0
     got = cgi_bins_reference(*args)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(best_bin))
-    np.testing.assert_array_equal(got.numpy(), _numpy_bins(args))
+    dense = densify(got, cgi_bins_count(args))
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(best_bin))
+    np.testing.assert_array_equal(dense.numpy(), _numpy_bins(args))
 
 
 @pytest.mark.parametrize("name", [c for c in CGI_CASES if c != "main"])
@@ -116,16 +154,108 @@ def test_cgi_cases_follow_the_rule(name):
     case = cgi_case(name)
     args = torch_args(case, "cpu")
     got = cgi_bins_reference(*args)
-    np.testing.assert_array_equal(got.numpy(), _numpy_bins(args))
+    for g, w in zip(got, _numpy_slots(args)):
+        np.testing.assert_array_equal(g.numpy(), w)
     if name == "ties":  # fragment 0's intervals 1 and 3 tie on genome 0: 1 keeps it
         assert _kept(args)[3][:4].tolist() == [False, True, True, False]
-    best_bin, s2g, q, bin_max, g_max = fold_args(got, args)
-    counts, hi, lo = fold_bins_reference(best_bin, s2g, q, bin_max, g_max)
-    bb = best_bin.numpy().reshape(q, -1, bin_max)
-    occ = bb > 0
-    q17 = np.where(occ, np.rint(np.where(occ, bb, 0) * np.float32(131072)), 0).astype(np.int64)
-    key = (np.arange(q)[:, None] * g_max + s2g.numpy()[None, :]).reshape(-1)
-    for x, part in ((counts, occ.sum(2)), (hi, (q17 >> 12).sum(2)), (lo, (q17 & 0xFFF).sum(2))):
-        want = np.zeros(q * g_max, np.int64)
-        np.add.at(want, key, part.reshape(-1))
-        np.testing.assert_array_equal(x.numpy().reshape(-1), want)
+    fargs = fold_args(got, args)
+    _, _, scratch, s2g, q, bin_max, g_max = fargs[:7]
+    _assert_fold(fold_bins_reference(*fargs),
+                 _numpy_fold(_numpy_bins(args), s2g.numpy(), q, bin_max, g_max))
+    assert bool(torch.isneginf(scratch).all())
+
+
+@pytest.mark.parametrize("name", [c for c in CGI_CASES if c != "main"])
+def test_fold_of_two_data_rows_is_their_pmax(name):
+    """Two data rows of one shard whose identities differ in the same bins:
+    the fold is JAX's over the ``pmax`` of the rows' dense bins, not
+    either row's alone."""
+    args = torch_args(cgi_case(name), "cpu")
+    one = cgi_bins_reference(*args)
+    two = second_row(one, 3)
+    fargs = fold_args([torch.cat(pair) for pair in zip(one, two)], args)
+    _, _, scratch, s2g, q, bin_max, g_max = fargs[:7]
+    n_bins = cgi_bins_count(args)
+    pmax = jnp.maximum(jnp.asarray(densify(one, n_bins).numpy()),
+                       jnp.asarray(densify(two, n_bins).numpy()))
+    fold = fold_bins_reference(*fargs)
+    _assert_fold(fold, _jax_fold(pmax, jnp.asarray(s2g.numpy()), q, bin_max, g_max))
+    assert bool(torch.isneginf(scratch).all())
+    for row in (one, two):
+        alone = fold_bins_reference(*fold_args(row, args))
+        assert any(not torch.equal(f, a) for f, a in zip(fold[1:], alone[1:]))
+
+
+def _slots(bins, idents):
+    return torch.tensor(bins, dtype=torch.int64), torch.tensor(idents, dtype=torch.float32)
+
+
+# (query genome, contig, bin) slots of q 2, 3 contigs of genomes (0, 0, 1),
+# 4 bins a contig: bin 5 is (0, 1, 1), bin 17 (1, 1, 1)
+_Q, _C, _BIN_MAX, _G_MAX = 2, 3, 4, 2
+_S2G = torch.tensor([0, 0, 1], dtype=torch.int32)
+
+
+def _out():
+    return torch.empty((3, _Q, _G_MAX), dtype=torch.int64)
+
+FOLD_CASES = {
+    # two fragments' equal identities in one bin count it once
+    "equal_in_one_bin": _slots([5, 5, 17, -1, 9], [0.97, 0.97, 0.912, -np.inf, 0.5]),
+    # a bin's max over two data rows of one shard, each row its own slots
+    "two_data_rows": _slots([5, 17, -1, 2, 17, 5, 23],
+                            [0.91, 0.88, -np.inf, 0.99, 0.93, 0.97, 0.8]),
+    # identities at or under 0 occupy no bin
+    "not_positive": _slots([1, 1, 6], [0.0, -0.25, 0.75]),
+    "none_kept": _slots([-1, -1], [-np.inf, -np.inf]),
+}
+
+
+@pytest.mark.parametrize("name", FOLD_CASES)
+def test_fold_cases_leave_the_scratch_neg_inf(name):
+    slots = FOLD_CASES[name]
+    scratch = torch.full((_Q * _C * _BIN_MAX,), -np.inf)
+    dense = densify(slots, scratch.shape[0])
+    fold = fold_bins_reference(*slots, scratch, _S2G, _Q, _BIN_MAX, _G_MAX, _out())
+    _assert_fold(fold, _numpy_fold(dense.numpy(), _S2G.numpy(), _Q, _BIN_MAX, _G_MAX))
+    _assert_fold(fold, _jax_fold(jnp.asarray(dense.numpy()), jnp.asarray(_S2G.numpy()), _Q,
+                                 _BIN_MAX, _G_MAX))
+    assert bool(torch.isneginf(scratch).all())
+    if name == "equal_in_one_bin":
+        assert fold[0].tolist() == [[1, 1], [1, 0]]  # bins 5, 9; 17
+
+
+def test_flagged_pass_folds_and_merges_its_flags(monkeypatch):
+    """A pass whose chunk budget overflows still folds its slots, leaves the
+    scratch ``-inf`` and merges its data rows' flags into ``out_flags``."""
+    mapper, frags = draft_panel()
+    sidx, b, calls, _ = run_block(monkeypatch, mapper, frags, 2, cmax=32, t_chunks=1)
+    assert bool(S._l2_interval_scan(*calls["_l2_interval_scan"])[3])  # the chunk overflow
+    args = calls["cgi_bins"]
+    slots = cgi_bins_reference(*args)
+    flags = torch.tensor([[0, 0, 0, 1, 0, 0], [0, 0, 0, 0, 0, 0]], dtype=torch.int32)
+    fargs = fold_args(slots, args, flags)
+    fold = fold_bins_reference(*fargs)
+    g_max = int(sidx.genome_lengths.shape[1])
+    _assert_fold(fold, _numpy_fold(densify(slots, cgi_bins_count(args)).numpy(),
+                                   args[9].numpy(), 2, b["bin_max"], g_max))
+    assert fargs[9].tolist() == [0, 0, 0, 1, 0, 0]
+    assert bool(torch.isneginf(fargs[2]).all())
+
+
+def test_dirty_scratch_is_refilled_before_the_next_fold():
+    """A pass stopped between the fold's max and its visit leaves maxima in
+    the scratch, which a later fold would read; filled with ``-inf`` again
+    (what the session does when it finds the scratch dirty), the next fold
+    is the clean one's."""
+    scratch = torch.full((_Q * _C * _BIN_MAX,), -np.inf)
+    stale_bin, stale_ident = _slots([5, 17, 3], [0.99, 0.95, 0.9])
+    scratch.scatter_reduce_(0, stale_bin, stale_ident, "amax")  # the stopped pass
+    slots = FOLD_CASES["two_data_rows"]
+    want = fold_bins_reference(*slots, torch.full_like(scratch, -np.inf), _S2G, _Q, _BIN_MAX,
+                               _G_MAX, _out())
+    dirty = fold_bins_reference(*slots, scratch.clone(), _S2G, _Q, _BIN_MAX, _G_MAX, _out())
+    assert any(not torch.equal(d, w) for d, w in zip(dirty, want))
+    scratch.fill_(-np.inf)
+    _assert_fold(fold_bins_reference(*slots, scratch, _S2G, _Q, _BIN_MAX, _G_MAX, _out()), want)
+    assert bool(torch.isneginf(scratch).all())

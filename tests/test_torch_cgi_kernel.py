@@ -8,7 +8,9 @@ two query genomes with padded rows, and genomes of several contigs.
 package and a NumPy transcription of the rules; here the wrappers'
 dispatch and the contracts' checks run on the CPU, and the kernels against
 the plain versions in tests that need a card (marker ``cuda``), bitwise
-(``chip_smoke._cgi_err``, ``chip_smoke._fold_err``).  The file imports no
+(``chip_smoke._cgi_err`` on the slots and the bins they give,
+``chip_smoke._fold_err``), the fold's scratch all ``-inf`` after each
+fold.  The file imports no
 JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cgi_kernel.py -m cuda
@@ -18,7 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CGI_CASES, _cgi_err, _fold_err, cgi_case, fold_args, torch_args
+from chip_smoke import (
+    CGI_CASES, _cgi_err, _fold_err, cgi_bins_count, cgi_case, fold_args, fold_fresh, second_row,
+    torch_args,
+)
 from pyfastani_tpu_torch.ops import cgi
 
 
@@ -33,22 +38,29 @@ def test_cgi_and_fold_take_plain_versions_on_cpu_only(name):
     args = torch_args(case, "cpu")
     launched = _counts("launches")
     before = _counts("reference_calls")
-    bins = cgi.cgi_bins(*args)
-    assert torch.equal(bins, cgi.cgi_bins_reference(*args))
-    fargs = fold_args(bins, args)
-    for g, w in zip(cgi.fold_bins(*fargs), cgi.fold_bins_reference(*fargs)):
+    slots = cgi.cgi_bins(*args)
+    for g, w in zip(slots, cgi.cgi_bins_reference(*args)):
+        assert torch.equal(g, w)
+    fargs = fold_args(slots, args, torch.tensor([[0, 1, 0, 0, 0, 0]], dtype=torch.int32))
+    got_args, want_args = fold_fresh(fargs), fold_fresh(fargs)
+    for g, w in zip(cgi.fold_bins(*got_args), cgi.fold_bins_reference(*want_args)):
         assert g.dtype == w.dtype == torch.int64 and torch.equal(g, w)
+    assert got_args[9].tolist() == want_args[9].tolist() == [0, 1, 0, 0, 0, 0]
+    assert bool(torch.isneginf(fargs[2]).all())
     assert _counts("launches") == launched
     after = _counts("reference_calls")
     assert {k: after[k] - before[k] for k in before} == {"cgi_bins": 2, "fold_bins": 2}
-    assert bins.dtype == torch.float32 and bins.shape == (case[15] * case[9].shape[0] * case[13],)
+    n_slots = case[5].shape[0] * case[12]
+    assert [(t.dtype, t.shape) for t in slots] == [(torch.int64, (n_slots,)),
+                                                    (torch.float32, (n_slots,))]
+    assert int(slots[0].max()) < cgi_bins_count(args)
 
 
 def test_cgi_and_fold_refuse_other_devices():
     args = torch_args(cgi_case("ties"), "cpu")
-    bins = cgi.cgi_bins_reference(*args)
+    slots = cgi.cgi_bins_reference(*args)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
-    fmeta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in fold_args(bins, args)]
+    fmeta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in fold_args(slots, args)]
     before = (_counts("launches"), _counts("reference_calls"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         cgi.cgi_bins(*meta)
@@ -58,24 +70,30 @@ def test_cgi_and_fold_refuse_other_devices():
 
 
 def test_contracts_of_the_checks():
-    """`_cgi_err` fails on an empty bin or a bit pattern that differs and
-    measures the occupied bins unless the pass is flagged; `_fold_err`
-    measures every output."""
+    """`_cgi_err` fails on a kept slot's bin, an empty bin or a bit pattern
+    that differs and measures the occupied bins unless the pass is
+    flagged; `_fold_err` measures every output."""
     args = torch_args(cgi_case("draft"), "cpu")
     want = cgi.cgi_bins_reference(*args)
-    assert _cgi_err(want.clone(), want) == 0.0
-    occupied = torch.nonzero(torch.isfinite(want))[0, 0]
-    bad = want.clone()
-    bad[occupied] += 0.5
-    assert _cgi_err(bad, want) == 0.5
+    n_bins = cgi_bins_count(args)
+    assert _cgi_err(tuple(t.clone() for t in want), want, n_bins=n_bins) == 0.0
+    bins, counts = torch.unique(want[0], return_counts=True)
+    kept = torch.nonzero(want[0] == bins[(bins >= 0) & (counts == 1)][0])[0, 0]  # alone in its bin
+    bad = (want[0], want[1].clone())
+    bad[1][kept] += 0.5
+    assert _cgi_err(bad, want, n_bins=n_bins) == 0.5
     assert _cgi_err(bad, want, flagged=True) == 0.0
-    bad = want.clone()
-    bad[occupied] = -np.inf
+    bad = (want[0].clone(), want[1])
+    bad[0][kept] = -1
+    with pytest.raises(AssertionError, match="slots"):
+        _cgi_err(bad, want, n_bins=n_bins)
+    empty = (want[0], want[1].clone())
+    empty[1][kept] = -np.inf
     with pytest.raises(AssertionError, match="empty"):
-        _cgi_err(bad, want)
-    zero = torch.zeros(4)
+        _cgi_err(empty, want, n_bins=n_bins)
+    zero = (torch.arange(4), torch.zeros(4))
     with pytest.raises(AssertionError, match="bits"):
-        _cgi_err(-zero, zero)
+        _cgi_err((zero[0], -zero[1]), zero)
     fold = cgi.fold_bins_reference(*fold_args(want, args))
     bad = [t.clone() for t in fold]
     bad[2][0, 0] += 9
@@ -94,17 +112,31 @@ def test_cuda_kernels_match_reference(name):
     case = cgi_case(name)
     args = torch_args(case, "cuda")
     launched = _counts("launches")
-    bins = cgi.cgi_bins(*args)
+    slots = cgi.cgi_bins(*args)
     want = cgi.cgi_bins_reference(*args)
-    fargs = fold_args(want, args)
-    fold = cgi.fold_bins(*fargs)
+    flags = torch.tensor([[0, 0, 1, 0, 0, 0], [1, 0, 0, 0, 0, 0]], dtype=torch.int32,
+                         device="cuda")
+    fargs = fold_args(want, args, flags)
+    got_args, want_args = fold_fresh(fargs), fold_fresh(fargs)
+    fold = cgi.fold_bins(*got_args)
     torch.cuda.synchronize()
     after = _counts("launches")
     assert {k: after[k] - launched[k] for k in launched} == {"cgi_bins": 1, "fold_bins": 1}
-    assert _cgi_err(bins, want) == 0.0
-    assert _fold_err(fold, cgi.fold_bins_reference(*fargs)) == 0
-    empty = torch.full_like(want, -np.inf)
-    assert not bool(cgi.fold_bins(*fold_args(empty, args))[0].any())
+    assert bool(torch.isneginf(fargs[2]).all())
+    assert _cgi_err(slots, want, n_bins=cgi_bins_count(args)) == 0.0
+    assert _fold_err(fold, cgi.fold_bins_reference(*want_args)) == 0
+    assert got_args[9].tolist() == want_args[9].tolist() == [1, 0, 1, 0, 0, 0]
+    # two data rows of one shard, the second's identities 0.01 off the first's
+    # in the same bins: each bin's max comes from one row or the other
+    two = [torch.cat(pair) for pair in zip(want, second_row(want, 5))]
+    fargs = fold_args(two, args)
+    fold = cgi.fold_bins(*fold_fresh(fargs))
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(fargs[2]).all())
+    assert _fold_err(fold, cgi.fold_bins_reference(*fold_fresh(fargs))) == 0
+    assert _fold_err(fold, cgi.fold_bins_reference(*fold_args(want, args))) > 0
+    none = (torch.full_like(want[0], -1), torch.full_like(want[1], -np.inf))
+    assert not bool(cgi.fold_bins(*fold_args(none, args))[0].any())
 
 
 @pytest.mark.cuda
@@ -119,8 +151,12 @@ def test_cuda_kernels_refuse_wrong_types():
     bad[8] = args[8].to(torch.float64)
     with pytest.raises(TypeError, match="ident_table"):
         cgi.cgi_bins(*bad)
-    bins = cgi.cgi_bins(*args)
-    fargs = list(fold_args(bins, args))
-    fargs[0] = bins[:-1]
-    with pytest.raises(ValueError, match="best_bin"):
+    slots = cgi.cgi_bins(*args)
+    fargs = list(fold_args(slots, args))
+    fargs[1] = slots[1][:-1]
+    with pytest.raises(ValueError, match="slot_ident"):
+        cgi.fold_bins(*fargs)
+    fargs = list(fold_args(slots, args))
+    fargs[2] = fargs[2][:-1]
+    with pytest.raises(ValueError, match="scratch"):
         cgi.fold_bins(*fargs)

@@ -4,9 +4,9 @@
 Two subprocesses join a ``torch.distributed`` group on gloo and lay a
 ``(2, 2)`` mesh over two CPU cells each, so each process runs one data
 row of both shards.  They restore the same `ShardedIndex` checkpoint and
-run the query: the single ``all_reduce(MAX)`` of every pass is both the
-max over data rows and the gather of the shards, so both processes must
-give the host engine's hits.  The children import no JAX.
+run the query: every pass ``all_gather``s each cell's kept slots and the
+flags, so each process folds every shard over both data rows, and both
+processes must give the host engine's hits.  The children import no JAX.
 """
 
 import json

@@ -26,6 +26,7 @@ from pyfastani_tpu import stats
 from pyfastani_tpu.parallel import sharded as jsh
 from pyfastani_tpu_torch import index as tidx
 from pyfastani_tpu_torch._common import resolve_device
+from chip_smoke import densify
 from pyfastani_tpu_torch.session import Session, _fold, _query_block
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,20 +104,25 @@ def test_query_block_and_fold_match_jax(tiny, q_count):
     want = _jax_fold(best_bin, jnp.asarray(sidx.seq_to_genome[0]), q_count, b["bin_max"], g_max)
 
     idx = tidx.index_to_device(sidx, "cpu")
-    t_bin, t_ovf = _query_block(
+    (slot_bin, slot_ident), t_ovf = _query_block(
         torch.from_numpy(frags), torch.from_numpy(frag_qg), idx, int(sidx.freq_threshold[0]),
         torch.from_numpy(tab), torch.from_numpy(gate), torch.from_numpy(ident),
         k, params.window_size, l, False,
         b["hmax"], b["ivmax"], b["cmax"], b["rmax"], b["t_chunks"], g_max, b["bin_max"],
         b["smax"], q_count, sidx.bucket_steps, m_values, sidx.gpos_shift, sidx.gpos_steps,
     )
-    got = _fold(t_bin, idx["seq_to_genome"], q_count, b["bin_max"], g_max)
+    # the slots' max into -inf bins is JAX's dense best_bin
+    t_bin = densify((slot_bin, slot_ident), best_bin.shape[0])
+    scratch = torch.full_like(t_bin, -np.inf)
+    got = _fold(slot_bin, slot_ident, scratch, idx["seq_to_genome"], q_count, b["bin_max"], g_max,
+                torch.empty((3, q_count, g_max), dtype=torch.int64))
     for name, g, w in zip(["counts", "isum_hi", "isum_lo"], got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     # the port's flags are JAX's five budget overflows, then the L2 range flag
     np.testing.assert_array_equal(t_ovf[:5].numpy(), np.asarray(ovf))
     np.testing.assert_array_equal(t_bin.numpy(), np.asarray(best_bin))
     assert got[0].numpy()[0, 0] > 0 and not t_ovf.any()
+    assert bool(torch.isneginf(scratch).all())
 
 
 def _genomes(seed=0, n=3, length=40_000, rate=0.02):

@@ -137,15 +137,54 @@ def _escalations(run):
     return hits, steps
 
 
-def test_escalation_follows_jax_budget_sequence(panel):
+def _folds(session, batch):
+    """``query_many(batch)``'s hits and the counts and identity sums of its
+    groups, as ``_run_groups`` returns them (the JAX session has the same
+    method)."""
+    seen = []
+    run = session._run_groups
+
+    def record(per_genome, groups):
+        out = run(per_genome, groups)
+        seen.extend(out)
+        return out
+
+    session._run_groups = record
+    try:
+        hits = session.query_many(batch)
+    finally:
+        del session._run_groups
+    return hits, seen
+
+
+def _same_folds(got, want):
+    assert len(got) == len(want)
+    for (g_group, g_counts, g_sum), (w_group, w_counts, w_sum) in zip(got, want):
+        assert list(g_group) == list(w_group)
+        np.testing.assert_array_equal(g_counts, np.asarray(w_counts))
+        np.testing.assert_array_equal(g_sum, np.asarray(w_sum))
+
+
+_TINY = dict(hmax=4, ivmax=16, cmax=128, rmax=384, t_chunks=4, bin_max=64, smax=128)
+
+
+@pytest.fixture(scope="module")
+def escalated(panel):
+    """The JAX session on a (2, 2) mesh at budgets that blow: the session,
+    its hits, its escalation steps and its groups' counts and sums."""
+    mapper, queries, _ = panel
+    session = jsh.ShardedSession(mapper, jax_make_mesh(2, 2), **_TINY)
+    (hits, folds), steps = _escalations(lambda: _folds(session, [[q] for q in queries]))
+    return session, hits, steps, folds
+
+
+def test_escalation_follows_jax_budget_sequence(panel, escalated):
     """Tiny budgets blow on a (2, 2) mesh, where each cell sees half the
     fragment block: every attempt doubles the same budgets as JAX."""
     mapper, queries, host = panel
-    tiny = dict(hmax=4, ivmax=16, cmax=128, rmax=384, t_chunks=4, bin_max=64, smax=128)
+    want_session, want, want_steps, _ = escalated
     batch = [[q] for q in queries]
-    want_session = jsh.ShardedSession(mapper, jax_make_mesh(2, 2), **tiny)
-    want, want_steps = _escalations(lambda: want_session.query_many(batch))
-    session = ShardedSession(mapper, _cpu_mesh(2, 2), **tiny)
+    session = ShardedSession(mapper, _cpu_mesh(2, 2), **_TINY)
     got, steps = _escalations(lambda: session.query_many(batch))
     assert steps == want_steps and len(steps) >= 2
     assert [_key(h) for h in got] == [_key(h) for h in want] == [_key(h) for h in host]
@@ -153,6 +192,62 @@ def test_escalation_follows_jax_budget_sequence(panel):
     assert {k: session.stats[k] for k in _COUNTERS} == {
         k: want_session.stats[k] for k in _COUNTERS
     }
+
+
+@pytest.mark.parametrize("where", ["after_cgi", "inside_fold"])
+def test_scratch_stays_neg_inf_across_passes(panel, escalated, monkeypatch, where):
+    """On a (2, 2) mesh (two data rows a shard): a batch whose budgets
+    escalate, the same batch again, a pass of its second query alone (in
+    the first query's slot) that raises after CGI (``after_cgi``: before
+    the fold runs; ``inside_fold``: after the last shard's max went into
+    its scratch, before its visit), then the batch once more, which
+    touches none of the stale bins.  Every finished pass leaves each
+    shard's scratch all ``-inf`` and gives the JAX session's counts and
+    identity sums; the raised one leaves it marked dirty, and the next pass
+    fills it again."""
+    mapper, queries, host = panel
+    from pyfastani_tpu_torch import session as S
+
+    batch = [[q] for q in queries]
+    _, want_hits, _, want = escalated
+    session = ShardedSession(mapper, _cpu_mesh(2, 2), **_TINY)
+
+    def clean():
+        assert not session._scratch_dirty and bool(torch.isneginf(session._scratch).all())
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(2):
+            hits, got = _folds(session, batch)
+            assert [_key(h) for h in hits] == [_key(h) for h in want_hits]
+            _same_folds(got, want)
+            clean()
+    assert session.stats["budget_escalations"] >= 1
+
+    fold = S._fold
+    calls = []
+
+    def stopped(slot_bin, slot_ident, scratch, *rest):
+        # inside_fold: the first shard folds, the last one stops after its max
+        calls.append(scratch)
+        if where == "inside_fold":
+            if len(calls) < session.n_shard:
+                return fold(slot_bin, slot_ident, scratch, *rest)
+            kept = slot_bin >= 0
+            assert bool(kept.any())
+            scratch.scatter_reduce_(0, slot_bin[kept], slot_ident[kept], "amax")
+        raise RuntimeError("stopped")
+
+    monkeypatch.setattr(S, "_fold", stopped)
+    with pytest.raises(RuntimeError, match="stopped"):
+        session.query_many(batch[1:])
+    assert session._scratch_dirty
+    assert bool(torch.isneginf(session._scratch).all()) == (where == "after_cgi")
+    monkeypatch.setattr(S, "_fold", fold)
+    hits, got = _folds(session, batch)
+    _same_folds(got, want)
+    assert [_key(h) for h in hits] == [_key(h) for h in want_hits] == [_key(h) for h in host]
+    clean()
 
 
 def test_multi_group_batch_equals_one_group_per_query():

@@ -106,7 +106,7 @@ def _marked(fn, name):
 # through ctypes, not through a torch op, so they are counted by name
 OWN_KERNELS = {
     "l2_plan": "l2 plan", "l2_chunks": "l2_chunks", "l2_merge": "l2 merge",
-    "cgi_bins": "gate + CGI", "fold_bins": "fold",
+    "cgi_bins": "gate + CGI", "fold_scatter": "fold", "fold_visit": "fold",
 }
 
 
