@@ -98,35 +98,40 @@ result:
     call's device time split by kernel (probe, ``cumsum``, intervals,
     fill) and the 32-byte sectors it touches (`l1_sectors`).
 
-14. (run after phase 13) the L2 sweep's chunk plan and merge
-    (``csrc/l2_sweep.cu``: ``l2_plan``, the contig lookup and the plan
-    from the L1 stage's intervals in two launches tiled by intervals;
-    ``l2_merge``) and the gate + CGI and the identity fold
-    (``csrc/cgi.cu``: ``cgi_bins``, ``fold_bins``) against their plain
-    torch versions under their contracts (`_plan_err`: both flags,
-    ``ends`` and the contigs always, the chunk operands on the live
-    slots, 0 past them; `_merge_err`: every interval while no flag is raised;
-    `_cgi_err`: the kept slots, and the bins they give (their max into
-    ``-inf`` bins, `densify`) bitwise, ``-inf`` included, while no flag is
-    raised; `_fold_err`: every output, the merged flags, and the scratch
-    all ``-inf`` after the fold), on CUDA tensors: the synthetic
+14. (run after phase 13) the L2 sweep's chunk plan (``csrc/l2_sweep.cu``:
+    ``l2_plan``, the contig lookup and the plan from the L1 stage's
+    intervals in two launches tiled by intervals) and the sweep's merge
+    with the gate + CGI, then the identity fold (``csrc/cgi.cu``:
+    ``cgi_bins``, one launch that merges each interval's chunks, gates
+    and keeps its mapping and writes the pass's flags row;
+    ``fold_bins``) against their plain torch versions under their
+    contracts (`_plan_err`: both flags, ``ends`` and the contigs always,
+    the chunk operands on the live slots, 0 past them; `_cgi_err`: the
+    flags row always, the kept slots, and the bins they give (their max
+    into ``-inf`` bins, `densify`) bitwise, ``-inf`` included, while no
+    flag is raised; `_fold_err`: every output, the merged flags, and the
+    scratch all ``-inf`` after the fold), on CUDA tensors: the synthetic
     cases of `SWEEP_CASES` (``main`` at the all-vs-all's shape, more
     chunks than slots, ranges past their capacity, no valid interval, one
     interval of ten chunks, chunks past their contig's end, intervals off
     the plan's tile, chunk totals at and one past the slots, an interval
-    across the last slot, contigs past the shared-memory table) and of
-    `CGI_CASES` (``main`` at the all-vs-all's shape, tied intervals, more
-    intervals than a warp, two query genomes with padded rows, genomes of
-    several contigs), the plan on an empty store (M = 0, where the plain
-    version cannot run) and the fold of slots that keep nothing; and,
-    captured from the path, ``real`` (phase 4's first group), ``ava`` (the
-    all-vs-all's first group) and, for the merge, CGI and the fold,
-    ``draft`` (one ``Mapper.query_draft`` call on phase 10's panel:
-    ``q_capacity`` 1).  ``main``, ``real``, ``ava`` and ``draft`` with the
-    wrappers' and the plain versions' times, each wrapper's device time
-    (its kernels and output fills) and its bound (`plan_work`,
-    `merge_work`, `cgi_work`, `fold_work`; for CGI and the fold also the
-    bound of the dense contract, which wrote and read every bin).
+    across the last slot, contigs past the shared-memory table), each
+    plan's chunks then given results (`plan_cgi_args`) for ``cgi_bins``,
+    and of `CGI_CASES` (``main`` at the all-vs-all's shape, tied
+    intervals, more intervals than a warp, two query genomes with padded
+    rows, genomes of several contigs, chunks tied at an interval's best,
+    intervals without chunks and invalid ones with chunks, a chunk total
+    cut inside an interval), the plan on an empty store (M = 0, where
+    the plain version cannot run) and the fold of slots that keep
+    nothing; and, captured from the path, ``real`` (phase 4's first
+    group), ``ava`` (the all-vs-all's first group) and ``draft`` (one
+    ``Mapper.query_draft`` call on phase 10's panel: ``q_capacity`` 1).
+    ``main``, ``real``, ``ava`` and ``draft`` with the wrappers' and the
+    plain versions' times, each wrapper's device time (its kernels and
+    output fills) and its bound (`plan_work`, `cgi_work`, `fold_work`;
+    for CGI also the bound of the parent's merge + CGI, which wrote and
+    read three int64 an interval, and for the fold that of the dense
+    contract, which wrote and read every bin).
     After every pass of phases 4 to 6, 9, 10 and 11, and every fold here,
     the session's scratch bins read all ``-inf`` (`check_scratch`).
 
@@ -931,14 +936,15 @@ def phase_l1(device, gpu: str) -> None:
     log(f"[13] l1_candidates on an empty index (U = M = 0): no interval, no flag ({gpu})")
 
 
-# phase 14: the L2 sweep's chunk plan and merge (`csrc/l2_sweep.cu`) and
-# the gate + CGI and the identity fold (`csrc/cgi.cu`); synthetic cases of
-# `sweep_case` and `cgi_case`
+# phase 14: the L2 sweep's chunk plan (`csrc/l2_sweep.cu`) and its merge
+# with the gate + CGI, and the identity fold (`csrc/cgi.cu`); synthetic
+# cases of `sweep_case` and `cgi_case`
 SWEEP_CASES = ("main", "overflow", "range", "empty", "one_interval", "contig_edges",
                "tile_edge", "at_slots", "one_past", "straddle", "many_contigs")
 # the cases whose chunk total passes their slots
 SWEEP_OVERFLOW = ("overflow", "one_past", "straddle")
-CGI_CASES = ("main", "ties", "wide_iv", "q2_padded", "draft")
+CGI_CASES = ("main", "ties", "wide_iv", "q2_padded", "draft", "chunk_ties", "no_chunks",
+             "chunk_overflow")
 SWEEP_CMW, SWEEP_CMAX = 2985, 3072  # k = 16, l = 3000, as the presizer gives
 
 
@@ -1037,44 +1043,77 @@ def sweep_case(name: str):
 
 
 def torch_args(case, device):
-    """A case's numpy operands as tensors on ``device``, ints as they are."""
+    """A case's numpy operands as tensors on ``device`` (a tuple of them, as
+    `cgi_bins`' flags, a tuple of tensors), ints as they are."""
     import torch
-
-    return tuple(torch.from_numpy(np.array(a)).to(device) if isinstance(a, np.ndarray) else a
-                 for a in case)
-
-
-def merge_args(plan_out, iv_valid, seed: int = 5):
-    """`l2_merge` operands for a plan's outputs: chunk results drawn from a
-    seed, ``best`` from a narrow range so that chunks of one interval tie,
-    and the plan's ``ends``."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    n = plan_out[0].shape[0]
 
     def put(a):
-        return torch.from_numpy(a.astype(np.int32)).to(plan_out[0].device)
+        if isinstance(a, tuple):
+            return tuple(put(x) for x in a)
+        return torch.from_numpy(np.array(a)).to(device) if isinstance(a, np.ndarray) else a
 
-    return (put(rng.integers(-1, 6, n)), put(rng.integers(0, 5000, n)),
-            put(rng.integers(0, 5000, n)), plan_out[5], iv_valid)
+    return tuple(put(a) for a in case)
+
+
+def _flags(raised=()):
+    """The six 0-d flags as the session passes them to `cgi_bins` (the five
+    budget overflows, bool, then the L2 range flag, int32), those named by
+    index in ``raised`` set."""
+    from pyfastani_tpu_torch.session import _N_FLAGS
+
+    return tuple(np.array(i in raised, np.int32 if i == _N_FLAGS - 1 else np.bool_)
+                 for i in range(_N_FLAGS))
+
+
+def _cgi_tables(rng, F: int, q: int, C: int, per_genome: int, smax: int = 384, k: int = 16):
+    """A `cgi_bins` call's per-fragment operands and tables, from a seed:
+    sketch sizes, query genomes, the gate and identity tables, each contig's
+    genome and the genome count."""
+    from pyfastani_tpu_torch import stats
+
+    s = rng.integers(150, smax + 1, F).astype(np.int32)
+    qg = rng.integers(0, q, F).astype(np.int32)
+    gate = np.asarray(stats.l2_gate_table(smax, k, 80.0))
+    ident = np.asarray(stats.identity_table(smax, k))
+    s2g = (np.arange(C) // per_genome).astype(np.int32)
+    return s, qg, gate, ident, s2g, -(-C // per_genome)
+
+
+def _chunks(rng, tgt, n_ch, bin_max: int, l: int, spread: int = 3):
+    """Chunk results of intervals with ``n_ch`` chunks each, back to back:
+    each chunk's best ``tgt`` of its interval less ``[0, spread)``, one
+    chunk of each interval at ``tgt`` itself, so that chunks of one
+    interval tie; anchors drawn in ``bin_max`` bins of ``l``.  Returns
+    ``(cbest, cfirst, clast, ends)``."""
+    ends = np.cumsum(n_ch).astype(np.int64)
+    owner = np.repeat(np.arange(tgt.shape[0]), n_ch)
+    cbest = tgt[owner] - rng.integers(0, spread, owner.shape[0])
+    top = (ends - n_ch + rng.integers(0, 1 << 30, tgt.shape[0]) % np.maximum(n_ch, 1))[n_ch > 0]
+    cbest[top] = tgt[n_ch > 0]
+    cfirst = rng.integers(0, bin_max * l, owner.shape[0])
+    clast = cfirst + rng.integers(0, 2 * l, owner.shape[0])
+    return cbest, cfirst, clast, ends
 
 
 def cgi_case(name: str):
     """The operands of one synthetic `cgi_bins` call of `CGI_CASES`, as
-    numpy arrays and ints in the wrapper's order, made from a seed: merged
-    intervals of F fragments with best shared counts around the gate, so
-    that some map and some do not, and columns past each fragment's
-    intervals junk.  ``main`` is the all-vs-all's shape (F 4096, ivmax 32,
-    q 16, 512 one-contig genomes, bin_max 1728); ``ties`` puts two
-    intervals of one fragment on one genome at one identity (and more
-    ties across a genome's contigs); ``wide_iv`` has ivmax 80, past a
-    warp; ``q2_padded`` two query genomes and padded rows; ``draft`` one
-    query genome against genomes of several contigs."""
-    from pyfastani_tpu_torch import stats
-
+    numpy arrays and ints in the wrapper's order, made from a seed: the
+    chunk results of F fragments' intervals, each interval's best shared
+    count around the gate so that some map and some do not, and the
+    slots past the chunks junk that nothing may read.  ``main`` is the
+    all-vs-all's shape (F 4096, ivmax 32, q 16, 512 one-contig genomes,
+    bin_max 1728); ``ties`` puts two intervals of one fragment on one
+    genome at one identity (and more ties across a genome's contigs);
+    ``wide_iv`` has ivmax 80, past a warp; ``q2_padded`` two query genomes
+    and padded rows; ``draft`` one query genome against genomes of several
+    contigs; ``chunk_ties`` three to five chunks an interval, most of them
+    tied at the interval's best (the first anchor the smallest of theirs,
+    the last the largest); ``no_chunks`` valid intervals without a chunk
+    slot and invalid ones with chunks; ``chunk_overflow`` a chunk total
+    past the slots, cut inside an interval's chunks, with its flag
+    raised."""
     rng = np.random.default_rng(sum(name.encode()) + 15)
-    F, ivmax, q, C, per_genome, bin_max, smax, l, k = 64, 8, 2, 24, 3, 64, 384, 3000, 16
+    F, ivmax, q, C, per_genome, bin_max, smax, l = 64, 8, 2, 24, 3, 64, 384, 3000
     if name == "main":
         F, ivmax, q, C, per_genome, bin_max = 4096, 32, 16, 512, 1, 1728
     elif name == "ties":
@@ -1083,44 +1122,83 @@ def cgi_case(name: str):
         ivmax = 80
     elif name == "draft":
         F, q, C, per_genome, bin_max = 512, 1, 64, 8, 400
-    g_max = C // per_genome
-    s2g = (np.arange(C) // per_genome).astype(np.int32)
-    gate = np.asarray(stats.l2_gate_table(smax, k, 80.0))
-    ident = np.asarray(stats.identity_table(smax, k))
+    s, qg, gate, ident, s2g, g_max = _cgi_tables(rng, F, q, C, per_genome, smax)
     NI = F * ivmax
-    s = rng.integers(150, smax + 1, F).astype(np.int32)
-    qg = rng.integers(0, q, F).astype(np.int32)
     valid = rng.random(NI) < 0.6
     seq = rng.integers(0, C, NI)
-    s_iv = np.repeat(s, ivmax)
-    g_iv = gate[np.minimum(s_iv, gate.shape[0] - 1)]
-    best = np.clip(g_iv + rng.integers(-3, 6, NI), -1, smax)
-    first = rng.integers(0, bin_max * l, NI)
-    last = first + rng.integers(0, 2 * l, NI)
+    g_iv = gate[np.minimum(np.repeat(s, ivmax), gate.shape[0] - 1)]
+    tgt = np.clip(g_iv + rng.integers(-3, 6, NI), -1, smax)
+    n_ch = np.where(valid, rng.integers(1, 4, NI), 0)
+    spread = 3
     if name == "ties":  # fragment 0: intervals 1 and 3 tie on genome 0, 0 below them
-        valid[:4], seq[:4] = True, [0, 1, 4, 0]
-        best[1] = best[3] = g_iv[0] + 2
-        best[0], best[2] = best[1] - 1, g_iv[0] + 4
+        valid[:4], seq[:4], n_ch[:4] = True, [0, 1, 4, 0], [1, 2, 1, 3]
+        tgt[1] = tgt[3] = g_iv[0] + 2
+        tgt[0], tgt[2] = tgt[1] - 1, g_iv[0] + 4
     if name == "q2_padded":  # the last quarter of the rows is padding
         pad = np.arange(F) >= 3 * F // 4
         s[pad], qg[pad] = 0, 0
         valid[np.repeat(pad, ivmax)] = False
-    junk = ~valid
-    best[junk] = rng.integers(-2, smax, int(junk.sum()))
-    first[junk] = rng.integers(-(2**31), 2**31 - 1, int(junk.sum()))
-    last[junk] = rng.integers(-(2**31), 2**31 - 1, int(junk.sum()))
-    return (best, first, last, valid, seq, s, qg, gate, ident, s2g,
-            SWEEP_CMW, l, ivmax, bin_max, g_max, q)
+        n_ch[np.repeat(pad, ivmax)] = 0
+    if name == "chunk_ties":
+        n_ch, spread = np.where(valid, rng.integers(3, 6, NI), 0), 2
+    if name == "no_chunks":  # a third of the valid intervals lose their chunks,
+        # half the invalid ones get chunks over the gate
+        n_ch[valid & (rng.random(NI) < 0.35)] = 0
+        junk = ~valid & (rng.random(NI) < 0.5)
+        n_ch[junk] = rng.integers(1, 4, int(junk.sum()))
+        tgt[junk] = np.minimum(g_iv[junk] + 5, smax)
+    cbest, cfirst, clast, ends = _chunks(rng, tgt, n_ch, bin_max, l, spread)
+    total = int(ends[-1])
+    ch_max = -(-total // 256) * 256 + 256
+    raised = (0, 5) if name == "wide_iv" else ()  # a bool flag and the int32 one
+    if name == "chunk_overflow":  # the last slot is an inner chunk of an interval
+        i = int(np.flatnonzero(n_ch >= 2)[len(np.flatnonzero(n_ch >= 2)) // 2])
+        ch_max, raised = int(ends[i]) - 1, (3,)
+    # past the chunks: junk that nothing reads
+    pad = ch_max - total
+    if pad > 0:
+        cbest = np.concatenate([cbest, rng.integers(0, smax, pad)])
+        cfirst = np.concatenate([cfirst, rng.integers(-(2**31), 2**31 - 1, pad)])
+        clast = np.concatenate([clast, rng.integers(-(2**31), 2**31 - 1, pad)])
+    cbest, cfirst, clast = (a[:ch_max].astype(np.int32) for a in (cbest, cfirst, clast))
+    return (cbest, cfirst, clast, ends, valid, seq, s, qg, gate, ident, s2g,
+            SWEEP_CMW, l, ivmax, bin_max, g_max, q, _flags(raised))
+
+
+def plan_cgi_args(plan, case, seed: int = 5):
+    """`cgi_bins` operands for a plan's outputs (``plan``, of `sweep_case`
+    operands ``case``, tensors): chunk results drawn from a seed around the
+    gate of each chunk's fragment, the plan's ``ends`` and contigs, two
+    query genomes, two contigs a genome, and the flags with the plan's two."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    valid, ivmax = case[2], case[3]
+    F, C, ch_max, l, bin_max = valid.shape[0] // ivmax, case[4].shape[0] - 1, plan[0].shape[0], \
+        3000, 64
+    s, qg, gate, ident, s2g, g_max = _cgi_tables(rng, F, 2, C, 2)
+    frag = plan[2].cpu().numpy()
+    cbest = gate[np.minimum(s[frag], gate.shape[0] - 1)] + rng.integers(-3, 6, ch_max)
+    cfirst = rng.integers(0, bin_max * l, ch_max)
+    clast = cfirst + rng.integers(0, 2 * l, ch_max)
+    dev = plan[0].device
+    put = torch_args((cbest.astype(np.int32), cfirst.astype(np.int32), clast.astype(np.int32),
+                      s, qg, gate, ident, s2g, _flags()), dev)
+    flags = put[8][:3] + (plan[7], plan[8]) + put[8][5:]
+    return (*put[:3], plan[5], valid, plan[6], *put[3:8], SWEEP_CMW, l, ivmax, bin_max, g_max,
+            2, flags)
 
 
 def fold_args(slots, case, flags=None):
     """`fold_bins` operands for `cgi_bins` operands ``case`` (tensors) and
-    their slots: a fresh ``-inf`` scratch and ``(3, q, g_max)`` output on
-    the slots' device, and with ``flags`` (int32 rows of 6) their merge
-    into a fresh ``out_flags``."""
+    their slots (`cgi_bins`' output; its flags row is not read): a fresh
+    ``-inf`` scratch and ``(3, q, g_max)`` output on the slots' device, and
+    with ``flags`` (int32 rows of 6) their merge into a fresh
+    ``out_flags``."""
     import torch
 
-    *_, s2g, _, _, _, bin_max, g_max, q = case
+    s2g, bin_max, g_max, q = case[10], case[14], case[15], case[16]
+    slots = slots[:2]
     dev = slots[0].device
     scratch = torch.full((q * s2g.shape[0] * bin_max,), -np.inf, device=dev)
     out = torch.empty((3, q, g_max), dtype=torch.int64, device=dev)
@@ -1146,7 +1224,7 @@ def second_row(slots, shift: int):
     rows; rolled by ``shift`` slots."""
     import torch
 
-    slot_bin, slot_ident = slots
+    slot_bin, slot_ident = slots[:2]
     kept = slot_bin >= 0
     step = torch.where(torch.cumsum(kept, 0) % 2 == 1, 0.01, -0.01).to(slot_ident.dtype)
     ident = torch.where(kept, slot_ident + step, slot_ident)
@@ -1159,7 +1237,7 @@ def densify(slots, n_bins: int):
     ``best_bin``)."""
     import torch
 
-    slot_bin, slot_ident = slots
+    slot_bin, slot_ident = slots[:2]
     kept = slot_bin >= 0
     bins = torch.full((n_bins,), -np.inf, device=slot_bin.device)
     return bins.scatter_reduce_(0, slot_bin[kept], slot_ident[kept], "amax")
@@ -1167,7 +1245,7 @@ def densify(slots, n_bins: int):
 
 def cgi_bins_count(args) -> int:
     """``q_count * C * bin_max`` of a `cgi_bins` call."""
-    return args[15] * args[9].shape[0] * args[13]
+    return args[16] * args[10].shape[0] * args[14]
 
 
 def scratch_clean(scratch, where: str) -> None:
@@ -1219,26 +1297,19 @@ def _plan_err(got, want) -> int:
                for g, w in zip(got[:5], want[:5]))
 
 
-def _merge_err(got, want, flagged: bool = False) -> int:
-    """The contract of `l2_merge`'s kernel: with the pass's flags clear,
-    the largest absolute difference of ``best``, ``first`` and ``last``
-    (0 when a flag is raised: the pass runs again)."""
-    _same_shape("l2_merge", got, want)
-    if flagged:
-        return 0
-    return max(int((g - w).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
-
-
 def _cgi_err(got, want, flagged: bool = False, n_bins: int | None = None) -> float:
-    """The contract of `cgi_bins`' kernel: with the pass's flags clear, the
-    slots ``(slot_bin, slot_ident)`` equal, and the bins they give
-    (`densify` into ``n_bins``, by default one past the largest kept bin)
-    bitwise equal; raises when a slot's bin, an empty (``-inf``) bin or a
-    bit pattern differs, returns the largest absolute difference of the
-    occupied bins (0.0 when a flag is raised)."""
+    """The contract of `cgi_bins`' kernel: the flags row equal always; with
+    the pass's flags clear, the slots ``(slot_bin, slot_ident)`` equal, and
+    the bins they give (`densify` into ``n_bins``, by default one past the
+    largest kept bin) bitwise equal; raises when the flags row, a slot's
+    bin, an empty (``-inf``) bin or a bit pattern differs, returns the
+    largest absolute difference of the occupied bins (0.0 when a flag is
+    raised)."""
     import torch
 
     _same_shape("cgi_bins", got, want)
+    if len(got) != 3 or not bool((got[2] == want[2]).all()):
+        raise AssertionError("cgi_bins flags row differs from the plain version")
     if flagged:
         return 0.0
     if not bool((got[0] == want[0]).all()):
@@ -1305,36 +1376,49 @@ def plan_work(args, out) -> dict:
     return _bound(nbytes, ops)
 
 
-def merge_work(args) -> dict:
-    """The least work of ``l2_merge(*args)``: each live chunk slot's three
-    results read, each interval's ``ends`` and flag read and three int64
-    written; 4 int32 operations a slot and 6 an interval."""
-    cbest, _, _, ends, _ = args
-    NI = ends.shape[0]
-    live = min(int(ends[-1]), cbest.shape[0])
-    return _bound(live * 12 + NI * (8 + 1 + 24), live * 4 + NI * 6)
-
-
-def cgi_work(args, dense: bool = False) -> dict:
-    """The least work of ``cgi_bins(*args)``, from this call's data: each
-    interval's best and flag read, each fragment's size, query genome and
-    gate (4 bytes each); a mapped interval's first, last and contig
-    (int64), its identity and genome looked up (4 bytes each); and each
-    interval's slot written (12 bytes; with ``dense``, the dense contract:
-    ``best_bin`` written once instead).  int32 operations: 4 an interval
-    (the gate) and 25 a mapped one (the bin, the identity, its
-    comparisons)."""
+def cgi_work(args, old: bool = False) -> dict:
+    """The least work of ``cgi_bins(*args)``, from this call's data.
+    Bytes: each interval's ``ends`` word (int64) and flag read; the chunk
+    slots of each valid interval, their best read (4 bytes each); a mapped
+    interval's chunks at its best, their first and last anchors (4 bytes
+    each); each fragment's size, query genome and gate (4 bytes each); a
+    mapped interval's contig (int64), its identity and genome looked up (4
+    bytes each); each interval's slot written (12 bytes); the flags read
+    and their row written.  int32 operations: 6 an interval (its slots'
+    bounds, the gate), 3 a chunk read and 25 a mapped interval (the bin,
+    the identity, its comparisons).  With ``old``, the parent's two
+    launches: the merge (each live slot's three results read, each
+    interval's ``ends`` and flag read and three int64 written; 4
+    operations a slot and 6 an interval), then CGI (each interval's best
+    and flag, a mapped one's first, last and contig read, the rest as
+    above)."""
     import torch
 
-    best, _, _, valid, _, s_sizes, _, gate = args[:8]
-    s2g, ivmax, bin_max, q = args[9], args[12], args[13], args[15]
-    NI, F = best.shape[0], s_sizes.shape[0]
+    from pyfastani_tpu_torch.ops.l2_sweep import l2_merge_reference
+
+    cbest, _, _, ends, valid, _, s_sizes, _, gate = args[:9]
+    ivmax, flags = args[13], args[17]
+    NI, F = ends.shape[0], s_sizes.shape[0]
+    best = l2_merge_reference(*args[:5])[0]
     s_iv = s_sizes.long().repeat_interleave(ivmax)
     gate_iv = gate.long()[s_iv.clamp(0, gate.shape[0] - 1)]
-    mapped = int((valid & (best > 0) & (best >= gate_iv)).sum())
-    written = q * s2g.shape[0] * bin_max * 4 if dense else NI * 12
-    return _bound(NI * (8 + 1) + F * 12 + mapped * (3 * 8 + 2 * 4) + written,
-                  NI * 4 + mapped * 25)
+    mapped = valid & (best > 0) & (best >= gate_iv)
+    n_mapped = int(mapped.sum())
+    ch_max = cbest.shape[0]
+    j = torch.arange(ch_max, device=ends.device)
+    owner = torch.searchsorted(ends, j, right=True).clamp(max=NI - 1)
+    live = j < ends[-1]
+    read = live & valid[owner]
+    at_best = int((read & mapped[owner] & (cbest.long() == best[owner])).sum())
+    flag_bytes = sum(f.element_size() + 4 for f in flags)
+    fixed = F * 12 + n_mapped * (8 + 2 * 4) + NI * 12
+    if old:
+        n_live = int(live.sum())
+        return _bound(n_live * 12 + NI * (8 + 1 + 24) + NI * (8 + 1) + fixed + n_mapped * 16,
+                      n_live * 4 + NI * 6 + NI * 4 + n_mapped * 25)
+    n_read = int(read.sum())
+    return _bound(NI * (8 + 1) + n_read * 4 + at_best * 8 + fixed + flag_bytes,
+                  NI * 6 + n_read * 3 + n_mapped * 25)
 
 
 def fold_work(args, dense: bool = False) -> dict:
@@ -1358,11 +1442,10 @@ def fold_work(args, dense: bool = False) -> dict:
                   slot_bin.shape[0] * 6 + touched * 20)
 
 
-# phase 14's four kernels: wrapper, plain version, contract, work, and the
+# phase 14's three kernels: wrapper, plain version, contract, work, and the
 # device kernels' name
 SWEEP_KERNELS = {
     "l2_plan": ("l2_sweep", "l2_plan", _plan_err, plan_work),
-    "l2_merge": ("l2_sweep", "l2_merge", _merge_err, merge_work),
     "cgi_bins": ("cgi", "cgi_bins", _cgi_err, cgi_work),
     "fold_bins": ("cgi", "fold_bins", _fold_err, fold_work),
 }
@@ -1372,7 +1455,7 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
                 flagged: bool = False) -> dict:
     """Kernel ``kernel`` of phase 14 against its plain version on ``args``
     (CUDA tensors) under its contract (``flagged``: the pass's flags are
-    raised, which waives the merge's and CGI's); with ``timed``, both times
+    raised, which waives CGI's slots); with ``timed``, both times
     (plain, kernel, kernel, plain), the wrapper's device time and the
     bound.  Returns the line's numbers and the plain outputs."""
     import importlib
@@ -1398,8 +1481,6 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
     torch.cuda.synchronize()
     if kernel == "cgi_bins":
         err = err_fn(got, want, flagged, cgi_bins_count(args))
-    elif kernel == "l2_merge":
-        err = err_fn(got, want, flagged)
     else:
         err = err_fn(got, want)
     if err != 0:
@@ -1426,10 +1507,10 @@ def check_sweep(kernel: str, name: str, args, gpu: str, timed: bool = False,
         scratch_clean(args[2], f"fold_bins {name} after the timed calls")
     old = ""
     if kernel in ("cgi_bins", "fold_bins"):
-        dense = work_fn(args, dense=True)
-        old = (f"; the dense contract's bound {dense['bound_ms']:.4f} ms by "
-               f"{dense['bound_by']} ({dense['bytes']} B), {100 * dense['bound_ms'] / alone:.1f}% "
-               f"of it")
+        what, other = ("the merge + CGI contract's", work_fn(args, old=True)) \
+            if kernel == "cgi_bins" else ("the dense contract's", work_fn(args, dense=True))
+        old = (f"; {what} bound {other['bound_ms']:.4f} ms by {other['bound_by']} "
+               f"({other['bytes']} B), {100 * other['bound_ms'] / alone:.1f}% of it")
     log(
         f"{head}; kernel {kern_a:.3f}/{kern_b:.3f} ms, plain {plain_a:.3f}/{plain_b:.3f} ms per "
         f"call, the wrapper's device time {alone:.4f} ms (every kernel of a call); "
@@ -1456,8 +1537,9 @@ def plan_no_store(device):
 
 
 def phase_sweep(device, gpu: str) -> None:
-    """Phase 14's synthetic cases: `l2_plan` and `l2_merge` on every case
-    of `SWEEP_CASES`, then the plan on an empty store; `cgi_bins` and
+    """Phase 14's synthetic cases: `l2_plan` and `cgi_bins` (on chunk
+    results drawn for the plan, `plan_cgi_args`) on every case of
+    `SWEEP_CASES`, then the plan on an empty store; `cgi_bins` and
     `fold_bins` on every case of `CGI_CASES`, then the fold of all-empty
     bins.  ``main`` timed."""
     import torch
@@ -1469,8 +1551,8 @@ def phase_sweep(device, gpu: str) -> None:
         plan = check_sweep("l2_plan", name, args, gpu, timed=name == "main")["want"]
         if bool(plan[7]) != (name in SWEEP_OVERFLOW) or bool(plan[8]) != (name == "range"):
             raise AssertionError(f"sweep case {name}: flags {bool(plan[7])}/{bool(plan[8])}")
-        check_sweep("l2_merge", name, merge_args(plan, args[2]), gpu, timed=name == "main",
-                    flagged=bool(plan[7]))
+        check_sweep("cgi_bins", f"{name} (the plan's chunks)", plan_cgi_args(plan, args), gpu,
+                    timed=name == "main")
     plan = l2_sweep.l2_plan(*plan_no_store(device))
     torch.cuda.synchronize()
     if bool(plan[1].any()) or bool(plan[8]):
@@ -1500,13 +1582,12 @@ def phase_sweep(device, gpu: str) -> None:
 
 
 def check_sweep_path(name: str, captured: dict, gpu: str, timed: bool) -> dict:
-    """The four kernels of phase 14 against their plain versions on the
+    """The three kernels of phase 14 against their plain versions on the
     operands captured from one group of the path (`capture_operands`);
     returns each kernel's numbers."""
     plan = check_sweep("l2_plan", name, captured["l2_plan"], gpu, timed)
     flagged = bool(plan["want"][7]) or bool(plan["want"][8])
     out = {"l2_plan": plan}
-    out["l2_merge"] = check_sweep("l2_merge", name, captured["l2_merge"], gpu, timed, flagged)
     out["cgi_bins"] = check_sweep("cgi_bins", name, captured["cgi_bins"], gpu, timed, flagged)
     out["fold_bins"] = check_sweep("fold_bins", name, captured["fold_bins"], gpu, timed)
     return out
@@ -1520,7 +1601,7 @@ L1_STORE_OPERANDS = (2, 3, 4, 5, 8)
 # the same of phase 14's kernels: the contig tables, mini_gpos and the
 # gpos bucket; the gate and identity tables and seq_to_genome
 SWEEP_STORE_OPERANDS = {
-    "l2_plan": (4, 5, 6, 7), "l2_merge": (), "cgi_bins": (7, 8, 9), "fold_bins": (2, 3),
+    "l2_plan": (4, 5, 6, 7), "cgi_bins": (8, 9, 10), "fold_bins": (2, 3),
 }
 
 
@@ -1540,12 +1621,16 @@ def capture_operands(run):
             **SWEEP_STORE_OPERANDS}
     originals = {name: getattr(session_module, name) for name in keep}
 
+    def clone(a):  # a tensor, or a tuple of them (`cgi_bins`' flags)
+        if isinstance(a, tuple):
+            return tuple(clone(x) for x in a)
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
     def capturing(name):
         def capture(*args):
             if name not in captured:
                 captured[name] = tuple(
-                    a.clone() if isinstance(a, torch.Tensor) and i not in keep[name] else a
-                    for i, a in enumerate(args)
+                    a if i in keep[name] else clone(a) for i, a in enumerate(args)
                 )
             return originals[name](*args)
         return capture
@@ -1595,7 +1680,7 @@ def kernel_counters() -> dict:
 
     return {
         "l2_chunks": (l2, ""), "winnow_fragments": (fragments, ""), "l1_candidates": (l1, ""),
-        **{name: (l2_sweep, f"{name}_") for name in ("l2_plan", "l2_merge")},
+        "l2_plan": (l2_sweep, "l2_plan_"),
         **{name: (cgi, f"{name}_") for name in ("cgi_bins", "fold_bins")},
     }
 
@@ -2319,7 +2404,7 @@ def main() -> int:
         "launches": launches[name],
         "case": "ava",
         **{k: v for k, v in sweep[name].items() if k not in ("device_ms", "want")},
-    } for name, line in (("l2_plan", "403 and :576"), ("l2_merge", 519), ("cgi_bins", 611),
+    } for name, line in (("l2_plan", "403 and :576"), ("cgi_bins", "519 and :611"),
                          ("fold_bins", 1219))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -150,15 +150,12 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # lo, rlen, frag, c0, len, flags, stream
     ]
     lib.l2_plan_launch.restype = i32
-    lib.l2_merge_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i64, i64,  # cbest, cfirst, clast, ends, valid, NI, ch_max
-        ptr, ptr, ptr, ptr,  # best, first, last, stream
-    ]
-    lib.l2_merge_launch.restype = i32
     lib.cgi_bins_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # best, first, last, valid, seq, s_sizes, frag_qg
+        ptr, ptr, ptr, ptr, i64,  # cbest, cfirst, clast, ends, ch_max
+        ptr, ptr, ptr, ptr,  # valid, seq, s_sizes, frag_qg
         ptr, i64, ptr, i64, i64,  # gate, its length, ident, smax_tab, its row stride
         ptr, i64, i64, i64, i64, i64, i64,  # seq_to_genome, C, F, ivmax, cmw, l, bin_max
+        ctypes.POINTER(ptr), ctypes.POINTER(i32), i32, ptr,  # flag pointers, sizes, count, row
         ptr, ptr, ptr,  # slot_bin, slot_ident, stream
     ]
     lib.cgi_bins_launch.restype = i32

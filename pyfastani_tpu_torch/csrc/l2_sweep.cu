@@ -1,12 +1,13 @@
-// The L2 sweep's chunk plan and merge for NVIDIA Hopper (sm_90a).
+// The L2 sweep's chunk plan for NVIDIA Hopper (sm_90a).
 //
 // Hand kernels of the port, not the counterparts of a TPU kernel: the JAX
 // package computes both steps as XLA array code around its one Pallas
 // kernel, pyfastani_tpu/parallel/sharded.py: the contig lookup of
-// _query_block_impl (:576-594) and _l2_interval_scan (the plan :403-456,
-// the merge :519-530).  The plain torch versions are
-// pyfastani_tpu_torch/ops/l2_sweep.py::l2_plan_reference and
-// l2_merge_reference.  The plan takes the L1 stage's candidate intervals
+// _query_block_impl (:576-594) and the plan of _l2_interval_scan
+// (:403-456).  The plain torch version is
+// pyfastani_tpu_torch/ops/l2_sweep.py::l2_plan_reference.  The sweep's
+// merge (:519-530) runs in the gate + CGI kernel, csrc/cgi.cu, which reads
+// `ends` and the chunk results.  The plan takes the L1 stage's candidate intervals
 // as it returns them: interval i of NI = F * ivmax (fragment i / ivmax)
 // spans global positions [g0[i], g1[i]] when valid[i]:
 //   * the contig lookup: seq[i] = clamp(upper_bound(coff, g1[i]) - 1, 0,
@@ -24,19 +25,14 @@
 //     clamped to the contig's block [cof[seq], cof[seq + 1]).  rlen =
 //     max(hi - lo, 0); flags[1] is raised when some rlen passes rcap,
 //     which then clamps it, and flags[0] when total passes ch_max.  A
-//     slot at or past total holds 0 in all five operands;
-//   * the merge takes interval i's chunk results in its own slots
-//     [ends[i] - n_ch[i], ends[i]) cut at ch_max: the largest best, then
-//     the smallest first and the largest last among the chunks at it
-//     (I32_MIN, I32_MAX, I32_MIN without a slot); best = -1 unless
-//     valid[i] and n_ch[i] > 0.
+//     slot at or past total holds 0 in all five operands.
 //
 // What bounds it on the card: bytes.  The plan reads each interval's two
 // bounds and flag, writes its contig (int64) and running chunk count,
 // writes 5 int32 a slot, and each live slot's two searches read a bucket's
 // bounds and a few positions of a store of 10^8 int32 (450 MB at the
 // all-vs-all's index), scattered: latency, not bandwidth, is what a
-// thread waits on.  The merge reads each chunk's three results once.
+// thread waits on.
 //
 // The first design ran the lookup as 16 torch ops (13 device kernels)
 // before the plan, then a count pass, a torch.cumsum (CUB, two kernels), a
@@ -77,8 +73,6 @@
 //     windows, and loading an interval's first buckets before the scan
 //     measured no faster; 64 registers (two blocks an SM) did.
 //   * An empty store (M = 0) is never read.
-//   * The merge is one thread an interval over its own contiguous slots:
-//     no segment table, no atomics.
 
 #include <cstdint>
 #include <cub/block/block_reduce.cuh>
@@ -87,14 +81,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kTile = 512;          // intervals a plan block, one a thread
 constexpr int kCoffShared = 2048;   // contig offsets staged in shared memory, at most
 constexpr int kWin = 16;            // store positions read around the interpolated place
 constexpr int kChunkBlocksPerSM = 2;  // the chunk kernel's blocks an SM, at least (64 registers)
 constexpr long long kBig = 1LL << 30;  // the window-position pad
-constexpr long long kI32Min = -(1LL << 31);
-constexpr long long kI32Max = (1LL << 31) - 1;
 
 // torch.clamp(x, lo, hi): min(max(x, lo), hi), also when lo > hi
 __device__ __forceinline__ long long clamp64(long long x, long long lo, long long hi) {
@@ -367,33 +358,6 @@ l2_plan_chunks_kernel(const int* __restrict__ g0, const int* __restrict__ g1,
     if (t == 0 && tid == 0) flags[0] = total > ch_max;
 }
 
-__global__ void __launch_bounds__(kThreads)
-l2_merge_kernel(const int* __restrict__ cbest, const int* __restrict__ cfirst,
-                const int* __restrict__ clast, const long long* __restrict__ ends,
-                const bool* __restrict__ valid, long long NI, long long ch_max,
-                long long* __restrict__ best, long long* __restrict__ first,
-                long long* __restrict__ last) {
-    const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-    if (i >= NI) return;
-    const long long start = i > 0 ? ends[i - 1] : 0;
-    const long long end = ends[i];
-    long long b = kI32Min, f = kI32Max, l = kI32Min;
-    for (long long j = max(start, 0LL); j < min(end, ch_max); ++j) {
-        const long long v = cbest[j];
-        if (v > b) {
-            b = v;
-            f = cfirst[j];
-            l = clast[j];
-        } else if (v == b) {
-            f = min(f, static_cast<long long>(cfirst[j]));
-            l = max(l, static_cast<long long>(clast[j]));
-        }
-    }
-    best[i] = (valid[i] && end - start > 0) ? b : -1;
-    first[i] = f;
-    last[i] = l;
-}
-
 inline long long blocks(long long n, long long per) { return (n + per - 1) / per; }
 
 }  // namespace
@@ -436,21 +400,6 @@ int l2_plan_launch(const void* g0, const void* g1, const void* valid, long long 
         static_cast<long long*>(ends), static_cast<int*>(lo), static_cast<int*>(rlen),
         static_cast<int*>(frag), static_cast<int*>(ch_c0), static_cast<int*>(ch_len),
         static_cast<bool*>(flags));
-    return static_cast<int>(cudaGetLastError());
-}
-
-// best, first, last (NI,) int64 per interval from the chunk results
-// cbest, cfirst, clast (ch_max,) int32 and ends = cumsum(n_ch), on
-// `stream`.  Returns cudaGetLastError().
-int l2_merge_launch(const void* cbest, const void* cfirst, const void* clast, const void* ends,
-                    const void* valid, long long NI, long long ch_max, void* best, void* first,
-                    void* last, void* stream) {
-    if (NI <= 0) return 0;
-    l2_merge_kernel<<<blocks(NI, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(cbest), static_cast<const int*>(cfirst),
-        static_cast<const int*>(clast), static_cast<const long long*>(ends),
-        static_cast<const bool*>(valid), NI, ch_max, static_cast<long long*>(best),
-        static_cast<long long*>(first), static_cast<long long*>(last));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,20 @@
-"""The identity gate, the two CGI reductions and the identity fold.
+"""The L2 sweep's merge, the identity gate, the two CGI reductions and the
+identity fold.
 
-Port of the tail of ``pyfastani_tpu/parallel/sharded.py::_query_block_impl``
-(the gate, the identity and the two CGI steps) and of the fold of
-``ShardedSession``'s ``block_fn``:
+Port of the merge of ``pyfastani_tpu/parallel/sharded.py::_l2_interval_scan``,
+of the tail of ``_query_block_impl`` (the gate, the identity and the two
+CGI steps) and of the fold of ``ShardedSession``'s ``block_fn``:
 
-* `cgi_bins` gates every candidate interval on its best shared count,
+* `cgi_bins` merges each candidate interval's L2 chunk results (the
+  largest ``best``, then the first and last anchor at it), gates the
+  interval on that best shared count,
   looks up its float32 identity in the host-exact ``(smax+1)^2`` table and
   keeps one best mapping per (fragment, genome) -- the largest identity,
   ties to the first interval in (seqId, pos) order, the rule of the host
   ``compute_cgi``.  It returns one slot an interval: a kept mapping's flat
   (query genome, contig, bin) index and identity, ``-1`` and ``-inf``
-  elsewhere.  The JAX package's dense best identity per bin is the max of
-  the slots into ``-inf`` bins;
+  elsewhere, and the pass's flags as one int32 row.  The JAX package's
+  dense best identity per bin is the max of the slots into ``-inf`` bins;
 * `fold_bins` reduces the slots of a shard's data rows per (query genome,
   genome) to the occupied-bin count and the identity sum as exact
   fixed-point integers (the 2^17 grid of ``_engine_np.mean_identity``) in
@@ -21,45 +24,57 @@ Port of the tail of ``pyfastani_tpu/parallel/sharded.py::_query_block_impl``
   ``-inf`` again, so no dense pass is made.
 
 Each wrapper launches a hand-written CUDA kernel for CUDA tensors
-(``csrc/cgi.cu``: one warp a fragment; the fold's scatter and visit, one
-thread a slot) and takes its plain version, `cgi_bins_reference` or
-`fold_bins_reference`, for CPU tensors; any other device raises.
-``<wrapper>_launches`` and ``<wrapper>_reference_calls`` count
-kernel-route calls and runs of the plain version.  Both routes agree
-bitwise: the slots whenever the pass raised no flag, the fold always.
+(``csrc/cgi.cu``: one warp a fragment, which merges each interval's chunks
+in registers; the fold's scatter and visit, one thread a slot) and takes
+its plain version, `cgi_bins_reference` (`ops.l2_sweep.l2_merge_reference`,
+then the gate and CGI) or `fold_bins_reference`, for CPU tensors; any
+other device raises.  ``<wrapper>_launches`` and
+``<wrapper>_reference_calls`` count kernel-route calls and runs of the
+plain version.  Both routes agree bitwise: the slots whenever the pass
+raised no flag, the flags row and the fold always.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ._cuda import check, cuda_device, current_stream, ptr, raise_on
-from .l2_sweep import I32_MAX, segment
+from .l2_sweep import I32_MAX, l2_merge_reference, segment
 
 __all__ = ["cgi_bins", "cgi_bins_reference", "fold_bins", "fold_bins_reference"]
 
 cgi_bins_launches = cgi_bins_reference_calls = 0
 fold_bins_launches = fold_bins_reference_calls = 0
 
+MAX_FLAGS = 8  # the flags a row can hold (csrc/cgi.cu, kMaxFlags)
+
 
 def cgi_bins(
-    best, first, last, iv_valid, iv_seq, s_sizes, frag_qg,
+    cbest, cfirst, clast, ends, iv_valid, iv_seq, s_sizes, frag_qg,
     gate_table, ident_table, seq_to_genome,
-    cmw: int, l: int, ivmax: int, bin_max: int, g_max: int, q_count: int,
+    cmw: int, l: int, ivmax: int, bin_max: int, g_max: int, q_count: int, flags,
 ):
-    """``(slot_bin, slot_ident)``: each interval's kept mapping after the
-    reciprocal filter, ``(F * ivmax,)`` each, the int64 flat bin ``qg * C *
-    bin_max + c * bin_max + b`` (query genome, contig, bin) and the float32
-    identity; ``-1`` and ``-inf`` where the interval keeps nothing.
+    """``(slot_bin, slot_ident, flag_row)``: each interval's kept mapping
+    after the reciprocal filter, ``(F * ivmax,)`` each, the int64 flat bin
+    ``qg * C * bin_max + c * bin_max + b`` (query genome, contig, bin) and
+    the float32 identity, ``-1`` and ``-inf`` where the interval keeps
+    nothing; and ``flags`` as one ``(len(flags),)`` int32 row.
 
     Args:
-        best, first, last: ``(F * ivmax,)`` int64 per interval (`ops.l2_sweep.l2_merge`);
-            fragment ``f`` owns intervals ``[f * ivmax, (f + 1) * ivmax)``.
+        cbest, cfirst, clast: ``(ch_max,)`` int32 chunk results
+            (`ops.l2.l2_chunks`).
+        ends: ``(F * ivmax,)`` int64 cumulative chunk counts
+            (`ops.l2_sweep.l2_plan`): interval ``i`` owns the chunk slots
+            ``[ends[i - 1], ends[i])`` cut at ``ch_max``; fragment ``f``
+            owns intervals ``[f * ivmax, (f + 1) * ivmax)``.
         iv_valid: ``(F * ivmax,)`` bool.
         iv_seq: ``(F * ivmax,)`` int64 contig of each interval.
         s_sizes: ``(F,)`` int32 sketch sizes.
-        frag_qg: ``(F,)`` int32 query genome of each fragment row.
+        frag_qg: ``(F,)`` int32 query genome of each fragment row, in
+            ``[0, q_count)``.
         gate_table: ``(T,)`` int32 smallest mapped shared count by sketch size.
         ident_table: ``(smax + 1, smax + 1)`` float32 identity by (sketch
             size, shared count).
@@ -67,16 +82,20 @@ def cgi_bins(
         cmw: window positions a fragment spans (``l - k + 1``).
         l: fragment length (the bin width).
         ivmax, bin_max, g_max, q_count: the static budgets.
+        flags: 1 to `MAX_FLAGS` 0-d bool or int32 tensors (the pass's
+            overflow flags), read in stream order.
     """
     global cgi_bins_launches
-    dev = cuda_device("cgi_bins", best)
+    dev = cuda_device("cgi_bins", ends)
     if dev is None:
         return cgi_bins_reference(
-            best, first, last, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table,
-            seq_to_genome, cmw, l, ivmax, bin_max, g_max, q_count,
+            cbest, cfirst, clast, ends, iv_valid, iv_seq, s_sizes, frag_qg, gate_table,
+            ident_table, seq_to_genome, cmw, l, ivmax, bin_max, g_max, q_count, flags,
         )
-    F = s_sizes.shape[0]
-    for name, t in (("best", best), ("first", first), ("last", last), ("iv_seq", iv_seq)):
+    F, ch_max = s_sizes.shape[0], cbest.shape[0]
+    for name, t in (("cbest", cbest), ("cfirst", cfirst), ("clast", clast)):
+        check(name, dev, torch.int32, t, ch_max)
+    for name, t in (("ends", ends), ("iv_seq", iv_seq)):
         check(name, dev, torch.int64, t, F * ivmax)
     check("iv_valid", dev, torch.bool, iv_valid, F * ivmax)
     for name, t, n in (("s_sizes", s_sizes, F), ("frag_qg", frag_qg, F),
@@ -88,35 +107,47 @@ def cgi_bins(
     C = seq_to_genome.shape[0]
     if gate_table.shape[0] < 1 or ident_table.shape[0] < 1 or C < 1 or l < 1 or bin_max < 1:
         raise ValueError("cgi_bins needs a gate and identity table, a contig, l and bin_max >= 1")
+    flags = tuple(flags)
+    if not 1 <= len(flags) <= MAX_FLAGS or any(
+            f.numel() != 1 or f.dtype not in (torch.bool, torch.int32) or f.device != dev
+            for f in flags):
+        raise TypeError(f"flags must be 1 to {MAX_FLAGS} one-element bool or int32 tensors "
+                        f"on {dev}")
 
     from .._build import load_library
 
     lib = load_library()
-    best, first, last, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table, s2g = (
-        t.contiguous() for t in (best, first, last, iv_valid, iv_seq, s_sizes, frag_qg,
-                                 gate_table, ident_table, seq_to_genome)
-    )
+    cbest, cfirst, clast, ends, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table, \
+        s2g = (t.contiguous() for t in (cbest, cfirst, clast, ends, iv_valid, iv_seq, s_sizes,
+                                        frag_qg, gate_table, ident_table, seq_to_genome))
+    n = len(flags)
+    flag_src = (ctypes.c_void_p * n)(*(f.data_ptr() for f in flags))
+    flag_bytes = (ctypes.c_int * n)(*(f.element_size() for f in flags))
+    flag_row = torch.empty(n, dtype=torch.int32, device=dev)
     slot_bin = torch.empty(F * ivmax, dtype=torch.int64, device=dev)
     slot_ident = torch.empty(F * ivmax, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         raise_on("cgi_bins", lib.cgi_bins_launch(
-            ptr(best), ptr(first), ptr(last), ptr(iv_valid), ptr(iv_seq), ptr(s_sizes),
-            ptr(frag_qg), ptr(gate_table), gate_table.shape[0], ptr(ident_table),
+            ptr(cbest), ptr(cfirst), ptr(clast), ptr(ends), ch_max, ptr(iv_valid), ptr(iv_seq),
+            ptr(s_sizes), ptr(frag_qg), ptr(gate_table), gate_table.shape[0], ptr(ident_table),
             ident_table.shape[0] - 1, ident_table.shape[1], ptr(s2g), C, F, ivmax, cmw, l,
-            bin_max, ptr(slot_bin), ptr(slot_ident), current_stream(dev),
+            bin_max, flag_src, flag_bytes, n, ptr(flag_row), ptr(slot_bin), ptr(slot_ident),
+            current_stream(dev),
         ))
     cgi_bins_launches += 1
-    return slot_bin, slot_ident
+    return slot_bin, slot_ident, flag_row
 
 
 def cgi_bins_reference(
-    best, first, last, iv_valid, iv_seq, s_sizes, frag_qg,
+    cbest, cfirst, clast, ends, iv_valid, iv_seq, s_sizes, frag_qg,
     gate_table, ident_table, seq_to_genome,
-    cmw: int, l: int, ivmax: int, bin_max: int, g_max: int, q_count: int,
+    cmw: int, l: int, ivmax: int, bin_max: int, g_max: int, q_count: int, flags,
 ):
-    """The plain torch version of `cgi_bins` (same arguments and result)."""
+    """The plain torch version of `cgi_bins` (same arguments and result):
+    `ops.l2_sweep.l2_merge_reference`, then the gate and CGI."""
     global cgi_bins_reference_calls
     cgi_bins_reference_calls += 1
+    best, first, last = l2_merge_reference(cbest, cfirst, clast, ends, iv_valid)
     dev = best.device
     i64 = torch.int64
     F = s_sizes.shape[0]
@@ -150,7 +181,8 @@ def cgi_bins_reference(
     # CGI step 2: each kept mapping's (query genome, contig, bin)
     qg_of_iv = frag_qg[frag_of_iv].to(i64)
     cbin = qg_of_iv * (C * bin_max) + seq_c * bin_max + rbin
-    return torch.where(keep1, cbin, -1), torch.where(keep1, ident, -np.inf)
+    flag_row = torch.stack([f.reshape(()).to(torch.int32) for f in flags])
+    return torch.where(keep1, cbin, -1), torch.where(keep1, ident, -np.inf), flag_row
 
 
 def _fold_outputs(dev, out, flags, out_flags, q_count: int, g_max: int):

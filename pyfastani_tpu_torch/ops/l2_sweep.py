@@ -14,20 +14,21 @@ its evaluator (`ops.l2.l2_chunks`), in the structure of its
   block (``cof_idx``), so a range holds one contig and its positions
   ascend.  A range longer than ``rcap`` is cut there and flagged, and so
   is a chunk total past ``ch_max``;
-* `l2_merge` merges the chunk results back per interval: the largest
-  ``best``, then the first and last anchor at it.
+* `l2_merge_reference` merges the chunk results back per interval: the
+  largest ``best``, then the first and last anchor at it.  On the card
+  the merge runs inside the gate + CGI kernel (`ops.cgi.cgi_bins`), so
+  it has no wrapper of its own; this plain version is the first step of
+  ``cgi_bins_reference``.
 
-Each wrapper launches a hand-written CUDA kernel for CUDA tensors
-(``csrc/l2_sweep.cu``: the plan as two launches tiled by intervals, the
-merge as one) and takes its plain version, `l2_plan_reference` or
-`l2_merge_reference`, for CPU tensors; any other device raises.
-``<wrapper>_launches`` and ``<wrapper>_reference_calls`` count
-kernel-route calls and runs of the plain version.  The plan's routes
-agree on ``iv_seq`` and ``ends`` everywhere, on every slot below
-``min(total, ch_max)``, where ``total`` is the chunk count, and on both
-flags; past it both hold ``rlen = ch_len = ch_c0 = 0`` (the kernels 0 in
-all five operands, as their twin `l2_plan_tiled` does).  The merge's
-agree on every interval while no flag is raised.  No operation waits for
+`l2_plan` launches a hand-written CUDA kernel for CUDA tensors
+(``csrc/l2_sweep.cu``: two launches tiled by intervals) and takes its
+plain version, `l2_plan_reference`, for CPU tensors; any other device
+raises.  ``l2_plan_launches`` and ``l2_plan_reference_calls`` count
+kernel-route calls and runs of the plain version.  The routes agree on
+``iv_seq`` and ``ends`` everywhere, on every slot below ``min(total,
+ch_max)``, where ``total`` is the chunk count, and on both flags; past it
+both hold ``rlen = ch_len = ch_c0 = 0`` (the kernels 0 in all five
+operands, as their twin `l2_plan_tiled` does).  No operation waits for
 the device.
 """
 
@@ -36,15 +37,13 @@ from __future__ import annotations
 import torch
 
 from .._common import BIG
-from ._cuda import check, cuda_device, current_stream, ptr, raise_on
+from ._cuda import check, cuda_device, current_stream, raise_on
 
 __all__ = [
-    "contig_lookup", "l2_merge", "l2_merge_reference", "l2_plan", "l2_plan_reference",
-    "l2_plan_tiled",
+    "contig_lookup", "l2_merge_reference", "l2_plan", "l2_plan_reference", "l2_plan_tiled",
 ]
 
 l2_plan_launches = l2_plan_reference_calls = 0
-l2_merge_launches = l2_merge_reference_calls = 0
 
 I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
@@ -103,7 +102,7 @@ def l2_plan(
         ``(lo, rlen, ch_frag, ch_c0, ch_len, ends, iv_seq, overflow,
         rovf)``: the five ``(ch_max,)`` int32 chunk operands of
         `ops.l2.l2_chunks`, ``(NI,)`` int64 ``ends`` (the cumulative chunk
-        counts, which `l2_merge` reads), ``(NI,)`` int64 ``iv_seq`` (each
+        counts, which `ops.cgi.cgi_bins` reads), ``(NI,)`` int64 ``iv_seq`` (each
         interval's contig, which `ops.cgi.cgi_bins` reads), and two 0-d
         bool flags: the chunk total passes ``ch_max``, a range passes
         ``rcap``.
@@ -320,45 +319,14 @@ def l2_plan_tiled(
             (rlen > rcap).any())
 
 
-def l2_merge(cbest, cfirst, clast, ends, iv_valid):
+def l2_merge_reference(cbest, cfirst, clast, ends, iv_valid):
     """``(best, first, last)``, each ``(NI,)`` int64, per interval from the
     ``(ch_max,)`` int32 chunk results of `ops.l2.l2_chunks` and the plan's
     ``ends`` (`l2_plan`): the largest chunk ``best``, the smallest
     ``first`` and largest ``last`` among the chunks at it; ``I32_MIN``,
     ``I32_MAX``, ``I32_MIN`` for an interval without a chunk slot, and
-    ``best = -1`` unless ``iv_valid`` and the interval has chunks.  The
-    kernel walks each interval's own slots; the plain version finds each
-    slot's interval in ``ends``."""
-    global l2_merge_launches
-    dev = cuda_device("l2_merge", ends)
-    if dev is None:
-        return l2_merge_reference(cbest, cfirst, clast, ends, iv_valid)
-    NI, ch_max = ends.shape[0], cbest.shape[0]
-    for name, t in (("cbest", cbest), ("cfirst", cfirst), ("clast", clast)):
-        check(name, dev, torch.int32, t, ch_max)
-    check("ends", dev, torch.int64, ends)
-    check("iv_valid", dev, torch.bool, iv_valid, NI)
-
-    from .._build import load_library
-
-    lib = load_library()
-    cbest, cfirst, clast, ends, iv_valid = (
-        t.contiguous() for t in (cbest, cfirst, clast, ends, iv_valid)
-    )
-    out = torch.empty((3, NI), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        raise_on("l2_merge", lib.l2_merge_launch(
-            ptr(cbest), ptr(cfirst), ptr(clast), ptr(ends), ptr(iv_valid), NI, ch_max,
-            *(ptr(row) for row in out), current_stream(dev),
-        ))
-    l2_merge_launches += 1
-    return out.unbind(0)
-
-
-def l2_merge_reference(cbest, cfirst, clast, ends, iv_valid):
-    """The plain torch version of `l2_merge` (same arguments and result)."""
-    global l2_merge_reference_calls
-    l2_merge_reference_calls += 1
+    ``best = -1`` unless ``iv_valid`` and the interval has chunks.  Each
+    slot's interval is found in ``ends``."""
     i64 = torch.int64
     NI = ends.shape[0]
     n_ch = torch.diff(ends, prepend=ends.new_zeros(1))

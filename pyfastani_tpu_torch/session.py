@@ -10,11 +10,12 @@ has four stages:
 1. the batched fragment winnow and sketch (`ops.fragments`);
 2. the L1 candidate intervals (`ops.l1`);
 3. the L2 chunk sweep (`_l2_interval_scan`): the contig lookup and
-   chunk plan (`ops.l2_sweep.l2_plan`), the per-chunk evaluator
-   `ops.l2.l2_chunks` and the merge per interval
-   (`ops.l2_sweep.l2_merge`);
-4. the identity gate and the two CGI reductions (`ops.cgi.cgi_bins`),
-   which leave each interval's kept mapping in a fixed slot.
+   chunk plan (`ops.l2_sweep.l2_plan`) and the per-chunk evaluator
+   `ops.l2.l2_chunks`;
+4. the merge of the chunk results per interval, the identity gate and
+   the two CGI reductions in one kernel (`ops.cgi.cgi_bins`), which
+   leaves each interval's kept mapping in a fixed slot and writes the
+   pass's flags row.
 
 Each stage's wrapper launches a CUDA kernel for CUDA tensors and runs its
 plain torch version for CPU tensors.  The cells' slots meet on one merge
@@ -69,7 +70,7 @@ from .ops.cgi import cgi_bins, fold_bins
 from .ops.fragments import winnow_fragments
 from .ops.l1 import l1_candidates
 from .ops.l2 import l2_chunks
-from .ops.l2_sweep import l2_merge, l2_plan
+from .ops.l2_sweep import l2_plan
 
 __all__ = ["ShardedSession", "Session"]
 
@@ -89,8 +90,9 @@ def _l2_interval_scan(
     q_sorted, s_sizes, iv_g0, iv_g1, iv_valid, idx, ivmax: int,
     gpos_shift: int, gpos_steps: int, cmw: int, cmax: int, rmax: int, ch_max: int,
 ):
-    """``(best, first, last)`` per candidate interval, the flags
-    ``(ovf_chunks, ovf_r, range_bad)`` and each interval's contig.
+    """``(cbest, cfirst, clast, ends)``, the chunk results and each
+    interval's chunk count summed to its end, the flags ``(ovf_chunks,
+    ovf_r, range_bad)`` and each interval's contig.
 
     The L1 stage's intervals (global positions, ``(F, ivmax)`` each) are
     looked up in the contig table and cut into chunks of at most ``cmax``
@@ -98,8 +100,8 @@ def _l2_interval_scan(
     Each chunk's range of reference minimizers is clamped to its contig's
     block (``cof_idx``), so ranges hold one contig and positions ascend; a
     range longer than ``R - 128`` (``R = _l2_kernel_rows(rmax)``) is
-    flagged.  Chunk results merge back per interval: the max, then the
-    first/last anchor at it.
+    flagged.  `ops.cgi.cgi_bins` merges the chunk results back per
+    interval: the max, then the first/last anchor at it.
     """
     R = _l2_kernel_rows(rmax)
     lo, rlen, ch_frag, ch_c0, ch_len, ends, iv_seq, overflow, rovf = l2_plan(
@@ -110,8 +112,7 @@ def _l2_interval_scan(
         q_sorted, s_sizes, idx["mini_hash"], idx["mini_wpos"], idx["mini_prev"],
         lo, rlen, ch_frag, ch_c0, ch_len, cmw, R - 128,
     )
-    best, first, last = l2_merge(cbest, cfirst, clast, ends, iv_valid)
-    return best, first, last, overflow, rovf, range_bad, iv_seq
+    return cbest, cfirst, clast, ends, overflow, rovf, range_bad, iv_seq
 
 
 def _query_block(
@@ -130,8 +131,8 @@ def _query_block(
     the reciprocal filter (`ops.cgi.cgi_bins`: its flat (query genome,
     contig, bin) index and identity, ``-1`` and ``-inf`` where none), and
     six 0/1 int32 flags: the budget overflows (smax, hmax, ivmax, t_chunks,
-    rmax), then the L2 range flag (`ops.l2.l2_chunks`).  No operation waits
-    for the device.
+    rmax), then the L2 range flag (`ops.l2.l2_chunks`), written by
+    `ops.cgi.cgi_bins` as one row.  No operation waits for the device.
     """
     F = frags.shape[0]
     cmw = l - (k - 1)
@@ -148,19 +149,16 @@ def _query_block(
     )
     ch_max = _round_up(F * t_chunks, _CH_SLAB)
     iv_valid = iv_valid.reshape(-1)
-    best, first, last, ovf_ch, ovf_r, range_bad, iv_seq = _l2_interval_scan(
+    cbest, cfirst, clast, ends, ovf_ch, ovf_r, range_bad, iv_seq = _l2_interval_scan(
         q_sorted, s_sizes, iv_g0, iv_g1, iv_valid, idx, ivmax,
         gpos_shift, gpos_steps, cmw, cmax, rmax, ch_max,
     )
-    flags = torch.stack(
-        [f.to(torch.int32) for f in (s_overflow, ovf_hits, ovf_iv, ovf_ch, ovf_r, range_bad)]
-    )
-
-    slots = cgi_bins(
-        best, first, last, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table,
+    slot_bin, slot_ident, flags = cgi_bins(
+        cbest, cfirst, clast, ends, iv_valid, iv_seq, s_sizes, frag_qg, gate_table, ident_table,
         idx["seq_to_genome"], cmw, l, ivmax, bin_max, g_max, q_count,
+        (s_overflow, ovf_hits, ovf_iv, ovf_ch, ovf_r, range_bad),
     )
-    return slots, flags
+    return (slot_bin, slot_ident), flags
 
 
 def _fold(slot_bin, slot_ident, scratch, seq_to_genome, q_count: int, bin_max: int, g_max: int,

@@ -4,13 +4,16 @@ A fragment block goes through the port's ``_query_block`` on the CPU,
 whose call of ``_l2_interval_scan`` is recorded; the recorded operands (the
 L1 stage's intervals as global positions) then go through the port's
 ``_l2_interval_scan`` -- the contig lookup and chunk plan (`l2_plan`, the
-plain version on the CPU), `l2_chunks` and the merge (`l2_merge`) -- and
-through the JAX package's contig lookup (``_query_block_impl``'s, in
-``jnp``) and ``_l2_interval_scan`` with ``use_pallas=False``, whose
-outputs its own tests pin as bit-identical to its Pallas branch.  Best,
-first, last, both budget flags and the contigs must be equal, with
-tolerance 0, on the tiny panel of ``tests/test_torch_query.py`` and on a
-panel of multi-contig genomes, also at a chunk budget that overflows.
+plain version on the CPU) and `l2_chunks` -- whose chunk results the
+merge's plain version (`l2_merge_reference`, the first step of
+``ops.cgi.cgi_bins``' plain version; on the card the merge runs inside
+its kernel) merges per interval, and through the JAX package's contig
+lookup (``_query_block_impl``'s, in ``jnp``) and ``_l2_interval_scan``
+with ``use_pallas=False``, whose outputs its own tests pin as
+bit-identical to its Pallas branch.  Best, first, last, both budget flags
+and the contigs must be equal, with tolerance 0, on the tiny panel of
+``tests/test_torch_query.py`` and on a panel of multi-contig genomes,
+also at a chunk budget that overflows.
 
 The plain plan (`l2_plan_reference`) is held bitwise against the
 composition it replaced (the session's contig lookup, then the plain plan
@@ -180,33 +183,40 @@ def test_l2_interval_scan_matches_jax(monkeypatch, panel, budgets, overflows):
     mapper, frags = tiny_panel() if panel == "tiny" else draft_panel()
     sidx, _, calls, _ = run_block(monkeypatch, mapper, frags, **budgets)
     args = calls["_l2_interval_scan"]
-    got = S._l2_interval_scan(*args)
+    cbest, cfirst, clast, ends, *flags, iv_seq = S._l2_interval_scan(*args)
+    got = (*l2_sweep.l2_merge_reference(cbest, cfirst, clast, ends, args[4]), *flags[:2])
     want, want_seq = _jax_scan(sidx, args)
     names = ["best", "first", "last", "ovf_chunks", "ovf_r"]
     for name, g, w in zip(names, got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int64), err_msg=name)
-    np.testing.assert_array_equal(got[6].numpy(), np.asarray(want_seq).astype(np.int64))
-    assert bool(got[3]) == overflows and not bool(got[4]) and not bool(got[5])
+    np.testing.assert_array_equal(iv_seq.numpy(), np.asarray(want_seq).astype(np.int64))
+    assert bool(flags[0]) == overflows and not bool(flags[1]) and not bool(flags[2])
     assert int((got[0] > 0).sum()) > 0
+    assert cbest.dtype == torch.int32 and cbest.shape == (args[12],) and ends.shape == args[4].shape
     if panel == "draft":  # the lookup finds several contigs
-        assert len(set(got[6][args[4]].tolist())) > 1
+        assert len(set(iv_seq[args[4]].tolist())) > 1
 
 
 def test_plan_and_merge_route_through_their_wrappers(monkeypatch):
-    """The sweep calls the plan and the merge once each, their plain
-    versions on the CPU."""
-    from pyfastani_tpu_torch.ops import l2_sweep
+    """The sweep calls the plan once, and the block's merge runs in
+    ``cgi_bins`` once, their plain versions on the CPU."""
+    from pyfastani_tpu_torch.ops import cgi
 
     mapper, frags = tiny_panel()
     _, _, calls, _ = run_block(monkeypatch, mapper, frags)
     def counts(kind):
-        return {k: getattr(l2_sweep, f"{k}_{kind}") for k in ("l2_plan", "l2_merge")}
+        return {"l2_plan": getattr(l2_sweep, f"l2_plan_{kind}"),
+                "cgi_bins": getattr(cgi, f"cgi_bins_{kind}")}
 
     before, launched = counts("reference_calls"), counts("launches")
-    S._l2_interval_scan(*calls["_l2_interval_scan"])
+    scan = S._l2_interval_scan(*calls["_l2_interval_scan"])
+    cgi.cgi_bins(*calls["cgi_bins"])
     assert counts("launches") == launched
     after = counts("reference_calls")
-    assert {k: after[k] - before[k] for k in before} == {"l2_plan": 1, "l2_merge": 1}
+    assert {k: after[k] - before[k] for k in before} == {"l2_plan": 1, "cgi_bins": 1}
+    # the block hands the sweep's chunk results and ends to cgi_bins unmerged
+    for g, w in zip(scan[:4], calls["cgi_bins"][:4]):
+        assert torch.equal(g, w)
 
 
 def _old_composition(iv_g0, iv_g1, iv_valid, ivmax, contig_offset, cof_idx, mini_gpos,

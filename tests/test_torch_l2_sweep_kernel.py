@@ -6,16 +6,19 @@ chunks than slots, ranges past their capacity, no valid interval, one
 interval of many chunks, chunks whose windows end past their contig,
 intervals off the plan's tile, chunk totals at and one past the slots, an
 interval across the last slot, and contigs past the kernels'
-shared-memory table.
+shared-memory table.  The merge runs inside the gate + CGI kernel
+(``csrc/cgi.cu``, ``ops.cgi.cgi_bins``), here on chunk results drawn for
+each case's plan (``chip_smoke.plan_cgi_args``).
 ``tests/test_torch_l2_sweep.py`` holds the plain versions, through the
 session's ``_l2_interval_scan``, against the JAX package; here the
 wrappers' dispatch and the contracts' checks run on the CPU, and the
 kernels against the plain versions in tests that need a card (marker
 ``cuda``), under the contracts (``chip_smoke._plan_err``: both flags,
 ``ends`` and ``iv_seq`` always equal, the chunk operands on the live slots,
-``rlen = ch_len = ch_c0 = 0`` past them; ``chip_smoke._merge_err``: every
-interval while no flag is raised).  The file imports no JAX, so it also
-runs where JAX is absent:
+``rlen = ch_len = ch_c0 = 0`` past them; ``chip_smoke._cgi_err``: the
+flags row always, the slots and the bins they give bitwise, here also
+where the plan overflows).  The file imports no JAX, so it also runs
+where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_l2_sweep_kernel.py -m cuda
 """
@@ -26,19 +29,28 @@ import torch
 from chip_smoke import (
     SWEEP_CASES,
     SWEEP_OVERFLOW,
-    _merge_err,
+    _cgi_err,
     _plan_err,
-    merge_args,
+    cgi_bins_count,
+    plan_cgi_args,
     plan_no_store,
     sweep_case,
     torch_args,
 )
-from pyfastani_tpu_torch.ops import l2_sweep
+from pyfastani_tpu_torch.ops import cgi, l2_sweep
 
 
 def _counts(kind: str) -> dict:
-    """``launches`` or ``reference_calls`` of both wrappers, by name."""
-    return {k: getattr(l2_sweep, f"{k}_{kind}") for k in ("l2_plan", "l2_merge")}
+    """``launches`` or ``reference_calls`` of the plan's wrapper and of
+    ``cgi_bins``, which merges the chunk results, by name."""
+    return {"l2_plan": getattr(l2_sweep, f"l2_plan_{kind}"),
+            "cgi_bins": getattr(cgi, f"cgi_bins_{kind}")}
+
+
+def _meta(a):
+    if isinstance(a, tuple):
+        return tuple(_meta(x) for x in a)
+    return a.to("meta") if isinstance(a, torch.Tensor) else a
 
 
 def _same(got, want):
@@ -56,11 +68,11 @@ def test_plan_and_merge_take_plain_versions_on_cpu_only(name):
     before = _counts("reference_calls")
     plan = l2_sweep.l2_plan(*args)
     _same(plan, l2_sweep.l2_plan_reference(*args))
-    margs = merge_args(plan, args[2])
-    _same(l2_sweep.l2_merge(*margs), l2_sweep.l2_merge_reference(*margs))
+    cargs = plan_cgi_args(plan, args)
+    _same(cgi.cgi_bins(*cargs), cgi.cgi_bins_reference(*cargs))
     assert _counts("launches") == launched
     after = _counts("reference_calls")
-    assert {k: after[k] - before[k] for k in before} == {"l2_plan": 2, "l2_merge": 2}
+    assert {k: after[k] - before[k] for k in before} == {"l2_plan": 2, "cgi_bins": 2}
     assert [t.dtype for t in plan[:7]] == [torch.int32] * 5 + [torch.int64] * 2
     assert plan[5].shape == plan[6].shape == args[2].shape
     assert plan[7].dim() == plan[8].dim() == 0 and plan[7].dtype == plan[8].dtype == torch.bool
@@ -70,20 +82,21 @@ def test_plan_and_merge_take_plain_versions_on_cpu_only(name):
 def test_plan_and_merge_refuse_other_devices():
     args = torch_args(sweep_case("one_interval"), "cpu")
     plan = l2_sweep.l2_plan_reference(*args)
-    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
-    margs = [a.to("meta") for a in merge_args(plan, args[2])]
+    meta = [_meta(a) for a in args]
+    cargs = [_meta(a) for a in plan_cgi_args(plan, args)]
     before = (_counts("launches"), _counts("reference_calls"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         l2_sweep.l2_plan(*meta)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        l2_sweep.l2_merge(*margs)
+        cgi.cgi_bins(*cargs)
     assert (_counts("launches"), _counts("reference_calls")) == before
 
 
 def test_contracts_of_the_checks():
     """`_plan_err` fails on a flag, ``ends``, a contig or a non-zero
     operand past the live slots and measures the live slots only;
-    `_merge_err` measures every interval unless the pass is flagged."""
+    `_cgi_err` fails on a flags row that differs, also when the pass is
+    flagged, and on a slot only when it is not."""
     args = torch_args(sweep_case("range"), "cpu")
     want = l2_sweep.l2_plan_reference(*args)
     live = int(want[5][-1])
@@ -112,11 +125,20 @@ def test_contracts_of_the_checks():
         bad[i] = ~bad[i]
         with pytest.raises(AssertionError, match="overflow|rovf"):
             _plan_err(bad, want)
-    m = l2_sweep.l2_merge_reference(*merge_args(want, args[2]))
+    cargs = plan_cgi_args(want, args)
+    m = cgi.cgi_bins_reference(*cargs)
+    assert m[2].tolist() == [0, 0, 0, 0, 1, 0]  # the plan's range flag in the row
+    kept = int(torch.nonzero(m[0] >= 0)[0, 0])
     bad = [t.clone() for t in m]
-    bad[1][0] += 2
-    assert _merge_err(bad, m) == 2
-    assert _merge_err(bad, m, flagged=True) == 0
+    bad[0][kept] = -1
+    with pytest.raises(AssertionError, match="slots"):
+        _cgi_err(bad, m, n_bins=cgi_bins_count(cargs))
+    assert _cgi_err(bad, m, flagged=True) == 0.0
+    bad = [t.clone() for t in m]
+    bad[2][4] = 0
+    for flagged in (False, True):
+        with pytest.raises(AssertionError, match="flags row"):
+            _cgi_err(bad, m, flagged=flagged)
 
 
 def _cuda():
@@ -133,17 +155,19 @@ def test_cuda_kernels_match_reference(name):
     before = _counts("reference_calls")
     plan = l2_sweep.l2_plan(*args)
     want = l2_sweep.l2_plan_reference(*args)
-    margs = merge_args(want, args[2])
-    merged = l2_sweep.l2_merge(*margs)
+    cargs = plan_cgi_args(want, args)
+    merged = cgi.cgi_bins(*cargs)
     torch.cuda.synchronize()
     after = _counts("launches")
-    assert {k: after[k] - launched[k] for k in launched} == {"l2_plan": 1, "l2_merge": 1}
+    assert {k: after[k] - launched[k] for k in launched} == {"l2_plan": 1, "cgi_bins": 1}
     assert _plan_err(plan, want) == 0
     live = min(int(want[5][-1]), want[0].shape[0])
     assert all(not bool(t[live:].any()) for t in plan[:5])  # an empty slot is all 0
     # the kernels' design, which their plain twin spells out, bitwise
     _same(plan, l2_sweep.l2_plan_tiled(*torch_args(sweep_case(name), "cpu")))
-    assert _merge_err(merged, l2_sweep.l2_merge_reference(*margs), bool(want[7])) == 0
+    # the slots bitwise even where the plan overflows: both routes read the
+    # slots below ch_max alone
+    assert _cgi_err(merged, cgi.cgi_bins_reference(*cargs), n_bins=cgi_bins_count(cargs)) == 0.0
     assert l2_sweep.l2_plan_reference_calls == before["l2_plan"] + 1
 
 
@@ -172,7 +196,7 @@ def test_cuda_kernels_refuse_wrong_types():
     with pytest.raises(TypeError, match="mini_gpos"):
         l2_sweep.l2_plan(*bad)
     plan = l2_sweep.l2_plan(*args)
-    margs = list(merge_args(plan, args[2]))
-    margs[1] = margs[1][:-1]
+    cargs = list(plan_cgi_args(plan, args))
+    cargs[1] = cargs[1][:-1]
     with pytest.raises(ValueError, match="cfirst"):
-        l2_sweep.l2_merge(*margs)
+        cgi.cgi_bins(*cargs)

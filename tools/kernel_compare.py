@@ -1,26 +1,26 @@
-"""A group's CGI + fold tail against an earlier source of it, on one GPU.
+"""The L2 merge + gate + CGI of a group against earlier sources of it, on one GPU.
 
-    python3 tools/kernel_compare.py --kernel cgi_fold OLD.cu [--reps N] [--no-ava]
+    python3 tools/kernel_compare.py --kernel merge_cgi OLD_L2_SWEEP.cu OLD_CGI.cu \
+        [--reps N] [--no-ava]
 
-``--kernel cgi_fold OLD.cu`` names an earlier
-``pyfastani_tpu_torch/csrc/cgi.cu`` with the C interface of commit
-``4645a89`` (``cgi_bins_launch`` into a dense ``best_bin``,
-``fold_bins_launch`` from it), for example
-``git show 4645a89:pyfastani_tpu_torch/csrc/cgi.cu > build/old/cgi.cu``.
-The tool builds that source with the port's nvcc flags and prints what
-``-Xptxas -v`` says of its kernels and of the current ones (registers,
-spills, shared memory).  Both sides are a group's whole tail on a
-one-cell mesh, from CGI's operands and the cell's flags to the pass's
-packed int64 outputs: old, that commit's ``-inf`` fill of ``best_bin``,
-its CGI kernel, ``_pass``'s merge buffer (a ``-inf`` fill, the flags'
-slice, two ``maximum``, the flags' float cast), the fold's ``zeros`` and
-kernel, then the ``stack``s and ``cat``, through an adapter of that
-interface; new, ``ops/cgi.py::cgi_bins`` and ``fold_bins`` into the
-packed output through a persistent ``-inf`` scratch, which must read all
-``-inf`` after every call.  A later redesign of another kernel adds its
-own ``--kernel NAME`` and adapter here and takes out the one before it
-once its numbers are recorded (the winnow, L1 and L2 plan comparisons of
-PRs 11-12 are in this file at commit ``4645a89``).
+``--kernel merge_cgi OLD_L2_SWEEP.cu OLD_CGI.cu`` names an earlier
+``pyfastani_tpu_torch/csrc/l2_sweep.cu`` and ``csrc/cgi.cu`` with the C
+interface of commit ``93c9f97`` (``l2_merge_launch``, three int64 an
+interval; ``cgi_bins_launch`` from them into the slots), for example
+``git show 93c9f97:pyfastani_tpu_torch/csrc/l2_sweep.cu > build/old/l2_sweep.cu``
+and the same of ``cgi.cu``.  The tool builds both sources into one
+library with the port's nvcc flags and prints what ``-Xptxas -v`` says of
+their merge and CGI kernels and of the current CGI kernel (registers,
+spills, shared memory).  Both sides take the chunk results, the plan's
+``ends`` and the pass's six flags to the slots and the flags row: old,
+that commit's merge wrapper (a ``(3, NI)`` int64 output and its kernel),
+the flags' six casts and their ``stack``, and its CGI wrapper (two slot
+outputs and its kernel), through an adapter of that interface; new,
+``ops/cgi.py::cgi_bins``, one launch.  A later redesign of another kernel
+adds its own ``--kernel NAME`` and adapter here and takes out the one
+before it once its numbers are recorded (the CGI + fold comparison is in
+this file at commit ``93c9f97``; the winnow, L1 and L2 plan comparisons at
+``4645a89``).
 
 Cases: every case of ``chip_smoke.CGI_CASES`` (checked, not timed;
 ``main``, the all-vs-all's shape, timed), and the operands captured from
@@ -28,14 +28,14 @@ the path (``chip_smoke.capture_operands``): ``real``, the first group of
 the 10 x 2 Mbp small batch (4 queries), ``ava``, the first group of the
 512-genome all-vs-all (~100 s to index), and ``draft``, one
 ``Mapper.query_draft`` call on the all-vs-all's panel (``q_capacity`` 1).
-On each case both tails' packed outputs must equal the plain versions'
-bitwise.  On the timed cases: each call between CUDA events in turns
-(old, new, new, old), each call's device work alone (``torch.profiler``:
-every device kernel the call launches, its fills and copies included)
-split by kernel name, the bound (``chip_smoke.cgi_work`` +
-``fold_work``, beside their dense contract's) and the share of it each
-reached.  Every line names the card and its power limit.  Needs a GPU;
-imports no JAX.
+On each case both sides' slots and flags row must equal the plain
+version's bitwise.  On the timed cases: each call between CUDA events in
+turns (old, new, new, old), each call's device work alone
+(``torch.profiler``: every device kernel the call launches, its casts and
+copies included) split by kernel name, the bounds (``chip_smoke.cgi_work``
+of the fused contract and of the parent's) and the share of each that
+each side reached.  Every line names the card and its power limit.  Needs
+a GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -47,47 +47,47 @@ import os
 import subprocess
 import sys
 
-import numpy as np
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-KERNELS = ("cgi_fold",)
+KERNELS = {"merge_cgi": 2}  # name: the old sources it takes
 
 
-def build_old(kernel: str, source: str):
-    """``(library, ptxas lines)`` of ``source`` built alone with the
-    port's nvcc flags."""
+def build_old(kernel: str, sources):
+    """``(library, ptxas lines)`` of ``sources`` built into one library
+    with the port's nvcc flags."""
     from pyfastani_tpu_torch import _build
 
-    with open(source, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for source in sources:
+        with open(source, "rb") as fh:
+            digest.update(fh.read())
     os.makedirs(_build._BUILD_DIR, exist_ok=True)
-    path = os.path.join(_build._BUILD_DIR, f"old_{kernel}_{digest}.so")
+    path = os.path.join(_build._BUILD_DIR, f"old_{kernel}_{digest.hexdigest()[:16]}.so")
     proc = subprocess.run(
-        [_build._nvcc(), *_build._NVCC_FLAGS, "-shared", "-o", path, source],
+        [_build._nvcc(), *_build._NVCC_FLAGS, "-shared", "-o", path, *sources],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
     lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.l2_merge_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr]
+    lib.l2_merge_launch.restype = i32
     lib.cgi_bins_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, i64, i64, ptr, i64, i64, i64, i64,
-        i64, i64, ptr, ptr,
+        i64, i64, ptr, ptr, ptr,
     ]
     lib.cgi_bins_launch.restype = i32
-    lib.fold_bins_launch.argtypes = [ptr, ptr, i64, i64, i64, i64, ptr, ptr]
-    lib.fold_bins_launch.restype = i32
-    return lib, ptxas_lines(proc.stdout + proc.stderr, kernel)
+    return lib, ptxas_lines(proc.stdout + proc.stderr, ("l2_merge", "cgi_bins"))
 
 
-def ptxas_lines(log: str, kernel: str) -> list:
-    """The ``-Xptxas -v`` lines of ``kernel``'s entry functions in
-    ``log``: one line each, name, registers, spills, shared memory."""
-    key = {"cgi_fold": ("cgi_bins", "fold_")}[kernel]
+def ptxas_lines(log: str, keys) -> list:
+    """The ``-Xptxas -v`` lines of the entry functions in ``log`` whose
+    names hold one of ``keys``: one line each, name, registers, spills,
+    shared memory."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -95,7 +95,7 @@ def ptxas_lines(log: str, kernel: str) -> list:
         elif name and "spill" in ln:
             spill = ln.strip()
         elif name and "Used" in ln:
-            if any(k in name for k in key):
+            if any(k in name for k in keys):
                 out.append(f"{name[:60]}: {ln.split(':', 1)[1].strip()}; {spill}")
             name, spill = None, ""
     return out
@@ -106,122 +106,76 @@ def _check(lib_err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib_err}")
 
 
-def old_tail(lib):
-    """A group's tail on a one-cell mesh as commit 4645a89 ran it, around
-    ``lib``'s CGI and fold kernels: ``(cgi_bins operands, the cell's
-    flags)`` to the pass's packed int64 outputs."""
+def old_path(lib):
+    """The merge, the flags' row and CGI as commit 93c9f97 ran them, around
+    ``lib``'s merge and CGI kernels: `cgi_bins` operands to ``(slot_bin,
+    slot_ident, flag_row)``."""
     import torch
 
-    def run(args, flags):
-        best, first, last, valid, seq, s_sizes, frag_qg, gate, ident, s2g, cmw, l, ivmax, \
-            bin_max, g_max, q = args
-        dev = best.device
-        C, F = s2g.shape[0], s_sizes.shape[0]
+    def run(cbest, cfirst, clast, ends, valid, seq, s_sizes, frag_qg, gate, ident, s2g, cmw, l,
+            ivmax, bin_max, g_max, q_count, flags):
+        dev = ends.device
+        NI, C, F = ends.shape[0], s2g.shape[0], s_sizes.shape[0]
         p = ctypes.c_void_p
         stream = p(torch.cuda.current_stream(dev).cuda_stream)
-        # the wrapper
-        best_bin = torch.full((q * C * bin_max,), -np.inf, dtype=torch.float32, device=dev)
+        # the merge's wrapper
+        merged = torch.empty((3, NI), dtype=torch.int64, device=dev)
+        _check(lib.l2_merge_launch(
+            *(p(t.data_ptr()) for t in (cbest, cfirst, clast, ends, valid)), NI, cbest.shape[0],
+            *(p(row.data_ptr()) for row in merged), stream), "old l2_merge")
+        # _query_block's flags
+        row = torch.stack([f.to(torch.int32) for f in flags])
+        # the CGI wrapper
+        slot_bin = torch.empty(F * ivmax, dtype=torch.int64, device=dev)
+        slot_ident = torch.empty(F * ivmax, dtype=torch.float32, device=dev)
         _check(lib.cgi_bins_launch(
-            *(p(t.data_ptr()) for t in (best, first, last, valid, seq, s_sizes, frag_qg, gate)),
+            *(p(t.data_ptr()) for t in (*merged, valid, seq, s_sizes, frag_qg, gate)),
             gate.shape[0], p(ident.data_ptr()), ident.shape[0] - 1, ident.shape[1],
-            p(s2g.data_ptr()), C, F, ivmax, cmw, l, bin_max, p(best_bin.data_ptr()), stream),
-            "old cgi_bins")
-        # _pass's merge on one cell
-        n_bins = q * C * bin_max
-        merged = torch.full((n_bins + 6,), -np.inf, dtype=torch.float32, device=dev)
-        merged[-6:] = 0
-        merged_flags = merged[-6:]
-        out = merged[:n_bins]
-        torch.maximum(out, best_bin.to(dev, non_blocking=True), out=out)
-        torch.maximum(merged_flags, flags.to(dev, non_blocking=True).to(torch.float32),
-                      out=merged_flags)
-        # the fold's wrapper, then the packing
-        sums = torch.zeros((3, q, g_max), dtype=torch.int64, device=dev)
-        _check(lib.fold_bins_launch(p(out.data_ptr()), p(s2g.data_ptr()), q, C, bin_max, g_max,
-                                    p(sums.data_ptr()), stream), "old fold_bins")
-        folds = [sums.unbind(0)]
-        return torch.cat([torch.stack(part).reshape(-1) for part in zip(*folds)]
-                         + [merged_flags.to(torch.int64)])
+            p(s2g.data_ptr()), C, F, ivmax, cmw, l, bin_max, p(slot_bin.data_ptr()),
+            p(slot_ident.data_ptr()), stream), "old cgi_bins")
+        return slot_bin, slot_ident, row
 
     return run
 
 
-def new_tail(scratch, plain: bool = False):
-    """The same tail through this commit's wrappers (or, with ``plain``,
-    their plain versions) and ``scratch``."""
+def compare(case: str, args, old, gpu: str, reps: int, timed: bool) -> None:
+    """Old and new against the plain version on one case."""
     import torch
 
     from pyfastani_tpu_torch.ops import cgi
 
-    cgi_fn = cgi.cgi_bins_reference if plain else cgi.cgi_bins
-    fold_fn = cgi.fold_bins_reference if plain else cgi.fold_bins
-
-    def run(args, flags):
-        s2g, bin_max, g_max, q = args[9], args[13], args[14], args[15]
-        slots = cgi_fn(*args)
-        packed = torch.empty((3 * q * g_max + 6,), dtype=torch.int64, device=s2g.device)
-        limbs = packed[:-6].view(3, q, g_max)
-        fold_fn(*slots, scratch, s2g, q, bin_max, g_max, limbs, flags, packed[-6:])
-        return packed
-
-    return run
-
-
-def tail_work(args, flags, dense: bool) -> dict:
-    """The tail's bound: ``chip_smoke.cgi_work`` + ``fold_work`` on this
-    call's slots (with ``dense``, both under the dense contract, which
-    writes and reads every bin)."""
-    from pyfastani_tpu_torch.ops import cgi
-
-    fargs = cs.fold_args(cgi.cgi_bins_reference(*args), args, flags)
-    a, b = cs.cgi_work(args, dense=dense), cs.fold_work(fargs, dense=dense)
-    return cs._bound(a["bytes"] + b["bytes"], a["ops"] + b["ops"])
-
-
-def compare_tail(case: str, args, flags, old, gpu: str, reps: int, timed: bool) -> None:
-    """The tail, old and new, against the plain versions' on one case."""
-    import torch
-
-    from pyfastani_tpu_torch.ops import cgi
-
-    scratch = torch.full((cs.cgi_bins_count(args),), -np.inf, device=args[0].device)
-    new = new_tail(scratch)
-    want = new_tail(scratch, plain=True)(args, flags)
-    for label, fn in (("old", old), ("new", new)):
-        got = fn(args, flags)
+    want = cgi.cgi_bins_reference(*args)
+    for label, fn in (("old", old), ("new", cgi.cgi_bins)):
+        got = fn(*args)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"cgi_fold {label} differs from the plain version ({case})")
-        cs.scratch_clean(scratch, f"cgi_fold {case} ({label})")
-    kept = int((cgi.cgi_bins_reference(*args)[0] >= 0).sum())
-    shape = (f"F={args[5].shape[0]}, ivmax={args[12]}, q={args[15]}, C={args[9].shape[0]}, "
-             f"bin_max={args[13]}, {kept} kept slots")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"merge_cgi {label} differs from the plain version ({case})")
+    kept = int((want[0] >= 0).sum())
+    shape = (f"F={args[6].shape[0]}, ivmax={args[13]}, ch_max={args[0].shape[0]}, "
+             f"{int(args[3][-1])} chunks, {kept} kept slots, flags {want[2].tolist()}")
     if not timed:
-        print(f"cgi_fold {case}: {shape}; old and new equal to the plain version ({gpu})",
+        print(f"merge_cgi {case}: {shape}; old and new equal to the plain version ({gpu})",
               flush=True)
         return
-    t_a1 = cs.time_ms(old, (args, flags), reps)
-    t_b1 = cs.time_ms(new, (args, flags), reps)
-    t_b2 = cs.time_ms(new, (args, flags), reps)
-    t_a2 = cs.time_ms(old, (args, flags), reps)
-    split_a = cs.device_split(old, (args, flags), reps)
-    split_b = cs.device_split(new, (args, flags), reps)
-    cs.scratch_clean(scratch, f"cgi_fold {case} after the timed calls")
+    t_a1 = cs.time_ms(old, args, reps)
+    t_b1 = cs.time_ms(cgi.cgi_bins, args, reps)
+    t_b2 = cs.time_ms(cgi.cgi_bins, args, reps)
+    t_a2 = cs.time_ms(old, args, reps)
+    split_a = cs.device_split(old, args, reps)
+    split_b = cs.device_split(cgi.cgi_bins, args, reps)
     d_a, d_b = sum(split_a.values()), sum(split_b.values())
-    work, dense = tail_work(args, flags, False), tail_work(args, flags, True)
+    work, prior = cs.cgi_work(args), cs.cgi_work(args, old=True)
     print(
-        f"cgi_fold {case}: {shape}; both equal to the plain version, the scratch all -inf "
-        f"after every call. Timed call old {t_a1:.4f}/{t_a2:.4f} ms, new {t_b1:.4f}/{t_b2:.4f} "
-        f"ms; device work alone old {d_a:.4f} ms in {len(split_a)} kernels, new {d_b:.4f} ms in "
-        f"{len(split_b)} (old/new {d_a / d_b:.2f}x); bound {work['bound_ms']:.4f} ms by "
-        f"{work['bound_by']} ({work['bytes']} B, {work['ops']} int32 ops): old "
-        f"{100 * work['bound_ms'] / d_a:.1f}%, new {100 * work['bound_ms'] / d_b:.1f}% of it; "
-        f"the dense contract's bound {dense['bound_ms']:.4f} ms ({dense['bytes']} B): old "
-        f"{100 * dense['bound_ms'] / d_a:.1f}%, new {100 * dense['bound_ms'] / d_b:.1f}% of it "
-        f"({gpu})", flush=True)
+        f"merge_cgi {case}: {shape}; both equal to the plain version. Timed call old "
+        f"{t_a1:.4f}/{t_a2:.4f} ms, new {t_b1:.4f}/{t_b2:.4f} ms; device work alone old "
+        f"{d_a:.4f} ms in {len(split_a)} kernels, new {d_b:.4f} ms in {len(split_b)} (old/new "
+        f"{d_a / d_b:.2f}x); fused bound {work['bound_ms']:.4f} ms by {work['bound_by']} "
+        f"({work['bytes']} B, {work['ops']} int32 ops): new {100 * work['bound_ms'] / d_b:.1f}% "
+        f"of it; the parent's merge + CGI bound {prior['bound_ms']:.4f} ms ({prior['bytes']} B):"
+        f" old {100 * prior['bound_ms'] / d_a:.1f}% of it ({gpu})", flush=True)
     for label, split in (("old", split_a), ("new", split_b)):
         parts = ", ".join(f"{cs.kernel_name(name)} {ms:.4f}" for name, ms in split.most_common())
-        print(f"cgi_fold {case}:   {label} split (ms a call): {parts}", flush=True)
+        print(f"merge_cgi {case}:   {label} split (ms a call): {parts}", flush=True)
 
 
 def captured(gpu: str, with_ava: bool) -> dict:
@@ -262,13 +216,14 @@ def captured(gpu: str, with_ava: bool) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", nargs=2, required=True, metavar=("{cgi_fold}", "OLD.cu"))
+    ap.add_argument("--kernel", nargs="+", required=True,
+                    metavar="merge_cgi OLD_L2_SWEEP.cu OLD_CGI.cu")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--no-ava", action="store_true", help="skip the all-vs-all's capture")
     opts = ap.parse_args()
-    name, source = opts.kernel
-    if name not in KERNELS:
-        ap.error(f"--kernel takes cgi_fold, not {name}")
+    name, *sources = opts.kernel
+    if KERNELS.get(name) != len(sources):
+        ap.error("--kernel takes merge_cgi OLD_L2_SWEEP.cu OLD_CGI.cu")
 
     import torch
 
@@ -280,19 +235,17 @@ def main() -> int:
 
     _build.load_library()
     device = torch.device("cuda", 0)
-    lib, lines = build_old(name, source)
-    old = old_tail(lib)
+    lib, lines = build_old(name, sources)
+    old = old_path(lib)
     for ln in lines:
         print(f"ptxas old {name}: {ln}", flush=True)
-    for ln in ptxas_lines(_build.build_log(), name):
+    for ln in ptxas_lines(_build.build_log(), ("cgi_bins",)):
         print(f"ptxas new {name}: {ln}", flush=True)
     paths = captured(gpu, not opts.no_ava)
-    flags = torch.zeros(6, dtype=torch.int32, device=device)
     for c in cs.CGI_CASES:
-        compare_tail(c, cs.torch_args(cs.cgi_case(c), device), flags, old, gpu, opts.reps,
-                     c == "main")
+        compare(c, cs.torch_args(cs.cgi_case(c), device), old, gpu, opts.reps, c == "main")
     for c, ops in paths.items():
-        compare_tail(c, ops["cgi_bins"], ops["fold_bins"][8], old, gpu, opts.reps, True)
+        compare(c, ops["cgi_bins"], old, gpu, opts.reps, True)
     return 0
 
 

@@ -25,9 +25,9 @@ steady ``query_many`` passes reports:
 * the split of one profiled pass by the steps of a group (`split_pass`):
   in ``_l2_interval_scan`` the chunk plan (every op before
   ``l2_chunks``: the plan's kernels, which also look up each interval's
-  contig), ``l2_chunks`` and the merge (every op after it); in
-  ``_query_block`` the ops between ``l1_candidates`` and the sweep
-  ("before sweep") and the gate and CGI (after the sweep); ``_fold``; and
+  contig) and ``l2_chunks``, where the sweep ends; in ``_query_block`` the
+  ops between ``l1_candidates`` and the sweep ("before sweep") and the
+  merge, gate and CGI (after the sweep: ``cgi_bins``); ``_fold``; and
   ``_pass``'s glue (its own ops outside ``_query_block`` and ``_fold``).
   For each step: host ms (the span of its ops, under the profiler), the
   torch ops it enqueues, the device kernels they launch and their device
@@ -86,8 +86,8 @@ def _first_groups(session, batch, n_groups: int):
 # the session functions whose calls `split_pass` marks, where the session
 # module has them
 SPLIT_FUNCS = (
-    "winnow_fragments", "l1_candidates", "l2_plan", "l2_chunks", "l2_merge",
-    "_l2_interval_scan", "cgi_bins", "_query_block", "fold_bins", "_fold",
+    "winnow_fragments", "l1_candidates", "l2_plan", "l2_chunks", "_l2_interval_scan",
+    "cgi_bins", "_query_block", "fold_bins", "_fold",
 )
 _MARK = "split:"
 
@@ -105,8 +105,8 @@ def _marked(fn, name):
 # the port's own kernels by the step that launches them: they launch
 # through ctypes, not through a torch op, so they are counted by name
 OWN_KERNELS = {
-    "l2_plan": "l2 plan", "l2_chunks": "l2_chunks", "l2_merge": "l2 merge",
-    "cgi_bins": "gate + CGI", "fold_scatter": "fold", "fold_visit": "fold",
+    "l2_plan": "l2 plan", "l2_chunks": "l2_chunks", "cgi_bins": "gate + CGI",
+    "fold_scatter": "fold", "fold_visit": "fold",
 }
 
 
@@ -161,7 +161,7 @@ def split_pass(run):
         S.ShardedSession._pass = orig_pass
 
     steps = {k: [0.0, 0, 0, 0.0] for k in (
-        "l2 plan", "l2_chunks", "l2 merge", "before sweep", "gate + CGI", "fold", "_pass glue",
+        "l2 plan", "l2_chunks", "before sweep", "gate + CGI", "fold", "_pass glue",
     )}
     cummax = [0.0, 0]
     kernel_names = {k: {} for k in steps}
@@ -220,8 +220,6 @@ def split_pass(run):
             before = [c for c in sk if c.time_range.end <= ch.time_range.start]
             add("l2 plan", before, ch.time_range.start - scan.time_range.start)
             add("l2_chunks", [ch], ch.time_range.end - ch.time_range.start)
-            add("l2 merge", [c for c in sk if c.time_range.start >= ch.time_range.end],
-                scan.time_range.end - ch.time_range.end)
             for c in before:
                 walk_cummax(c)
     return steps, cummax, glue_ops, kernel_names
