@@ -132,13 +132,37 @@ result:
     for CGI also the bound of the parent's merge + CGI, which wrote and
     read three int64 an interval, and for the fold that of the dense
     contract, which wrote and read every bin).
-    After every pass of phases 4 to 6, 9, 10 and 11, and every fold here,
-    the session's scratch bins read all ``-inf`` (`check_scratch`).
+    After every pass of phases 4 to 6, 9, 10, 11 and 15, and every fold
+    here, the session's scratch bins read all ``-inf`` (`check_scratch`);
+15. (run after phase 11, before phase 10) the port's other parameter
+    paths, the configurations of `PARAM_PATHS`, each through ``Sketch``
+    -> ``add_draft`` -> ``index()`` -> ``Mapper.query_draft`` of every
+    query (the cached one-genome session) and ``Session.query_many`` at
+    ``q_capacity`` 16 (`param_path`): ``protein_bgc`` (protein, 100-residue
+    fragments, w 1: the MIBiG golden of ``tests/data``, 130 of 176
+    fragments against two references, through ``query_draft``,
+    ``query_many`` and mappers pickled before and after ``index()``; then
+    `bgc_panel`, 2,048 drafts of 24 proteins in families of four at 5%,
+    about 49k contigs, past the contig lookup's shared table, its second
+    query also with `X`, stops and lowercase residues, `odd_residues`),
+    ``nucl_k14_f1000`` (k 14, 1 kb fragments: `phage_panel`, 1,024 genomes
+    of 30-80 kb in families of four at 3%) and ``nucl_f5000`` (5 kb
+    fragments on phase 4's panel: the winnow's long route); 32 queries of
+    each panel (4 of phase 4's).  Hits equal through both entry points,
+    each query hits its family (or reference), the first two equal the
+    port's CPU route (a ``Sketch(device="cpu")`` ingested and indexed on
+    its own) and the host engine; the routes taken (`param_routes`: the
+    winnow's, asserted, the L2 kernel's variant, the contig lookup's
+    table, global for ``protein_bgc``), budgets and escalations printed;
+    the phase's wall time at most `PARAM_SECONDS`.  Then each kernel
+    against its plain version on the operands of each configuration's
+    first group (the L2 kernel timed, as in phase 3).
 
-Phases 4 to 6, 9, 10 and 11 each reset the kernels' launch counters
+Phases 4 to 6, 9, 10, 11 and 15 each reset the kernels' launch counters
 before their run and fail unless every kernel ran and no plain version
 did.  The last lines are the card, a JSON object with one entry per
-kernel (launches summed over phases 4 to 6, 9, 10's steady pass and 11;
+kernel (launches summed over phases 4 to 6, 9, 10's steady pass, 11 and
+15;
 times and bound at the case its ``case`` key names: ``real`` for the L2
 kernel, ``ava`` for the others), and ``{"ok": true, "device":
 {...}}``.
@@ -224,7 +248,29 @@ L1_CASES = (
     "main", "m_high", "trunc", "ovf_iv", "empty", "all_empty", "s_zero", "one_fragment",
     "scratch", "sort_edges",
 )
+# phase 15: the port's other parameter paths, each a `Sketch` keyword set
+# and the winnow route its fragments take (`winnow_route`)
+PARAM_PATHS = {
+    "protein_bgc": dict(protein=True, fragment_length=100),
+    "nucl_k14_f1000": dict(k=14, fragment_length=1000),
+    "nucl_f5000": dict(fragment_length=5000),
+}
+PARAM_ROUTES = {"protein_bgc": "tile", "nucl_k14_f1000": "tile", "nucl_f5000": "long"}
+PARAM_SEED = 15
+# a BGC database: drafts of 24 proteins of 150-600 residues over the 20
+# amino acids, in families of four mutants at 5% substitutions
+BGC_DRAFTS, BGC_PROTEINS, BGC_RESIDUES, BGC_RATE = 2048, 24, (150, 600), 0.05
+# phages and plasmids: 30-80 kb genomes in families of four at 3%
+PHAGE_GENOMES, PHAGE_LENGTHS, PHAGE_RATE = 1024, (30_000, 80_000), 0.03
+# queried: one panel member in 64 (protein) or 32 (phages) through
+# `query_draft` and `query_many` at this capacity; the first few against the
+# CPU route and the host engine; the phase's wall time at most this
+PARAM_QUERIES, PARAM_Q_CAPACITY, PARAM_CHECKED, PARAM_SECONDS = 32, 16, 2, 120.0
+# the MIBiG golden of tests/test_ani.py: BGC0001428 against two copies of
+# BGC0001425
+MIBIG_GOLDEN = [("BGC0001425", 130, 176), ("BGC0001427", 130, 176)]
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
+_AMINO = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 _NUCL = np.frombuffer(b"ACGTN", np.uint8)
 _PROT = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", np.uint8)
 
@@ -1668,6 +1714,89 @@ def genomes():
     return refs, queries, unrelated
 
 
+def substitute(rng, base: np.ndarray, rate: float, alphabet: np.ndarray) -> np.ndarray:
+    """A copy of ``base`` with each letter redrawn from ``alphabet`` at
+    ``rate`` (`mutate` over any alphabet)."""
+    arr = base.copy()
+    idx = rng.random(arr.shape[0]) < rate
+    arr[idx] = rng.choice(alphabet, size=int(idx.sum()))
+    return arr
+
+
+def bgc_panel(n_drafts: int = BGC_DRAFTS, seed: int = PARAM_SEED):
+    """``n_drafts`` protein drafts (lists of ``bytes``) of `BGC_PROTEINS`
+    proteins each, in families of `AVA_FAMILY` mutants of an ancestor at
+    `BGC_RATE` substitutions; each ancestor's protein lengths uniform in
+    `BGC_RESIDUES`."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n_drafts:
+        lengths = rng.integers(BGC_RESIDUES[0], BGC_RESIDUES[1] + 1, size=BGC_PROTEINS)
+        base = rng.choice(_AMINO, size=int(lengths.sum()))
+        cuts = np.cumsum(lengths)[:-1]
+        for _ in range(min(AVA_FAMILY, n_drafts - len(out))):
+            mutant = substitute(rng, base, BGC_RATE, _AMINO)
+            out.append([p.tobytes() for p in np.split(mutant, cuts)])
+    return out
+
+
+def phage_panel(n_genomes: int = PHAGE_GENOMES, seed: int = PARAM_SEED):
+    """``n_genomes`` one-contig genomes (lists of ``bytes``) in families
+    of `AVA_FAMILY` mutants of an ancestor at `PHAGE_RATE`; each ancestor's
+    length uniform in `PHAGE_LENGTHS`."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n_genomes:
+        base = rng.choice(_ACGT, size=int(rng.integers(PHAGE_LENGTHS[0], PHAGE_LENGTHS[1] + 1)))
+        for _ in range(min(AVA_FAMILY, n_genomes - len(out))):
+            out.append([substitute(rng, base, PHAGE_RATE, _ACGT).tobytes()])
+    return out
+
+
+def odd_residues(contigs, seed: int = PARAM_SEED):
+    """Protein ``contigs`` as a real FASTA file may hold them: 1% of the
+    residues ``X``, a third of the letters lowercase, and each protein
+    ending in a stop, ``*``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for contig in contigs:
+        arr = np.frombuffer(contig, np.uint8).copy()
+        arr[rng.random(arr.shape[0]) < 0.01] = ord("X")
+        arr[rng.random(arr.shape[0]) < 1 / 3] |= 0x20
+        out.append(arr.tobytes() + b"*")
+    return out
+
+
+def family_of(i: int, n: int) -> set:
+    """The names panel member ``i`` of `bgc_panel` or `phage_panel` hits:
+    the `AVA_FAMILY` members of its own family."""
+    lo = i - i % AVA_FAMILY
+    return {f"g{j}" for j in range(lo, min(lo + AVA_FAMILY, n))}
+
+
+def param_panel(name: str, refs=None, queries=None, scale: int = 1):
+    """Phase 15's panel of configuration ``name``: ``(references,
+    queries, expected, self_hit)``, the references ``(name, contigs)``,
+    the queries lists of contigs, ``expected`` each query's hit names, and
+    ``self_hit`` whether a query is itself a reference (then it hits
+    itself at identity 100).  ``nucl_f5000`` takes phase 4's ``refs`` and
+    ``queries``; ``scale`` divides the panels' sizes (the CPU tests run
+    them small)."""
+    if name == "nucl_f5000":
+        queries = queries[:N_QUERIES]
+        return ([(f"ref{i}", [r]) for i, r in enumerate(refs)], [[q] for q in queries],
+                [{f"ref{i % len(refs)}"} for i in range(len(queries))], False)
+    if name == "protein_bgc":
+        panel = bgc_panel(BGC_DRAFTS // scale)
+    else:
+        panel = phage_panel(PHAGE_GENOMES // scale)
+    n = len(panel)
+    step = max(1, n // PARAM_QUERIES)
+    picked = range(0, n, step)
+    return ([(f"g{i}", contigs) for i, contigs in enumerate(panel)],
+            [panel[i] for i in picked], [family_of(i, n) for i in picked], True)
+
+
 def hit_key(hits):
     return [(h.name, h.identity, h.matches, h.fragments) for h in hits]
 
@@ -2026,6 +2155,217 @@ def phase_case(gpu: str, mapper, queries, want):
     return launches
 
 
+def mibig_golden():
+    """``(BGC0001425's proteins, BGC0001428's)``, read from ``tests/data``
+    by the port's FASTA reader."""
+    from pyfastani_tpu_torch._fasta import Parser
+
+    data = os.path.join(ROOT, "tests", "data")
+    return tuple([r.seq for r in Parser(os.path.join(data, f"{name}.faa"))]
+                 for name in ("BGC0001425", "BGC0001428"))
+
+
+def golden_runs(device=None) -> dict:
+    """The MIBiG golden through the user's entry points on ``device``
+    (``None``: the card): two copies of BGC0001425 indexed, BGC0001428
+    queried through ``query_draft``, through ``Session.query_many``,
+    through mappers pickled before and after ``index()``, and through the
+    host engine (``Mapper._query_host``).  Hits by route."""
+    import pickle
+
+    import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch.session import Session
+
+    bgc1, bgc3 = mibig_golden()
+    sketch = pt.Sketch(**PARAM_PATHS["protein_bgc"], device=device)
+    sketch.add_draft("BGC0001425", bgc1)
+    sketch.add_draft("BGC0001427", bgc1)
+    before = pickle.loads(pickle.dumps(sketch))
+    mapper = sketch.index()
+    return {
+        "query_draft": mapper.query_draft(bgc3),
+        "query_many": Session(mapper, device=device, q_capacity=PARAM_Q_CAPACITY).query_many(
+            [bgc3])[0],
+        "pickled sketch": before.index().query_draft(bgc3),
+        "pickled mapper": pickle.loads(pickle.dumps(mapper)).query_draft(bgc3),
+        "host engine": mapper._query_host(bgc3),
+    }
+
+
+def param_routes(lib, device, params, ops) -> dict:
+    """The routes phase 15's configuration took, from the operands of its
+    first group (`capture_operands`): the winnow's (`winnow_route`), the
+    L2 kernel's variant and the contig lookup's table."""
+    l2_args, sweep = ops[0], ops[3]
+    S, rmax = l2_args[0].shape[1], l2_args[11]
+    n_coff = sweep["l2_plan"][4].shape[0]
+    return {
+        "winnow": winnow_route(lib, device, params.min_read_length, params.kmer_size,
+                               params.window_size),
+        "l2_chunks": "shared" if lib.l2_chunks_fits_shared(device.index, S, rmax) else "scratch",
+        "contig lookup": ("shared" if lib.l2_plan_coff_staged(n_coff) else "global")
+                         + f" ({n_coff - 1} contigs)",
+    }
+
+
+def param_path(gpu: str, name: str, references, queries, expected, self_hit):
+    """One configuration of phase 15 through the user's entry points on
+    the card: ``Sketch(**PARAM_PATHS[name])`` -> ``add_draft`` ->
+    ``index()`` -> ``query_draft`` of every query (the cached one-genome
+    session) and ``Session.query_many`` at ``q_capacity`` 16 (and, for
+    protein, the second query with `odd_residues` and the MIBiG golden,
+    `golden_runs`), the kernels' launch counters around it; then the same
+    data through the port's CPU route and the host engine.  Returns the launches and the operands of the batch's
+    first group (`capture_operands`)."""
+    import warnings
+
+    import torch
+
+    import pyfastani_tpu_torch as pt
+    from pyfastani_tpu_torch._build import load_library
+    from pyfastani_tpu_torch.session import Session
+
+    tag = f"[15] {name}"
+    device = torch.device("cuda", 0)
+    kw = PARAM_PATHS[name]
+    t0 = time.perf_counter()
+    sketch = pt.Sketch(**kw)
+    for ref, contigs in references:
+        sketch.add_draft(ref, contigs)
+    mapper = sketch.index()
+    params = mapper._param
+    residues = sum(len(c) for _, contigs in references for c in contigs)
+    log(
+        f"{tag}: {kw} (k {params.kmer_size}, w {params.window_size}, l "
+        f"{params.min_read_length}): {len(references)} references, "
+        f"{sum(len(c) for _, c in references)} contigs, {residues} letters, "
+        f"{mapper._index.n_minimizers} minimizers; generated, ingested and indexed in "
+        f"{time.perf_counter() - t0:.3f} s ({gpu})"
+    )
+
+    def run():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            draft = [mapper.query_draft(q) for q in queries]
+            torch.cuda.synchronize()
+            t_draft = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            session = Session(mapper, q_capacity=PARAM_Q_CAPACITY)
+            many, *ops = capture_operands(lambda: session.query_many(queries))
+            torch.cuda.synchronize()
+            t_many = time.perf_counter() - t0
+            groups = session.stats["dispatches"]
+            odd = golden = None
+            if params.protein:
+                odd = (mapper.query_draft(odd_query), session.query_many([odd_query])[0])
+                golden = golden_runs()
+        steps = [str(w.message).split("escalating ", 1)[1]
+                 for w in caught if "escalating" in str(w.message)]
+        return draft, t_draft, session, many, t_many, groups, ops, odd, golden, steps
+
+    odd_query = odd_residues(queries[1]) if params.protein else None
+    (draft, t_draft, session, many, t_many, groups, ops, odd, golden, steps), launches = counted(
+        run)
+    one = mapper._device_session()
+    check_scratch(one, f"{tag} query_draft")
+    check_scratch(session, f"{tag} query_many")
+    for qi, (a, b) in enumerate(zip(draft, many)):
+        if hit_key(a) != hit_key(b):
+            raise AssertionError(f"{tag} query {qi}: query_draft {a} != query_many {b}")
+    for qi, (hits, want) in enumerate(zip(draft, expected)):
+        names = sorted(h.name for h in hits)
+        if names != sorted(want):
+            raise AssertionError(f"{tag} query {qi}: hits {names}, expected {sorted(want)}")
+        if self_hit and 100.0 not in [h.identity for h in hits]:
+            raise AssertionError(f"{tag} query {qi}: no self-hit at identity 100: {hits}")
+    routes = param_routes(load_library(), device, params, ops)
+    if routes["winnow"].split(",")[0] != PARAM_ROUTES[name]:
+        raise AssertionError(f"{tag}: the winnow took the {routes['winnow']} route, "
+                             f"expected {PARAM_ROUTES[name]}")
+    if params.protein and not routes["contig lookup"].startswith("global"):
+        raise AssertionError(f"{tag}: the contig lookup stayed in shared memory")
+    qbp = sum(len(c) for q in queries for c in q)
+    log(
+        f"{tag}: {len(queries)} queries ({qbp} letters): query_draft {t_draft:.3f} s, "
+        f"Session park + query_many at q_capacity {PARAM_Q_CAPACITY} {t_many:.3f} s "
+        f"({groups} groups); hits equal through both, each query hits "
+        f"its {'family' if self_hit else 'reference'} "
+        f"({sum(len(h) for h in draft)} hits{', itself at identity 100' if self_hit else ''}); "
+        f"routes: {'; '.join(f'{k} {v}' for k, v in routes.items())}; budgets "
+        f"{session.budgets} (query_draft's {one.budgets}); escalations "
+        f"{session.stats['budget_escalations']} in query_many, "
+        f"{one.stats['budget_escalations']} in query_draft ({'; '.join(steps) or 'none'}); "
+        f"scratch all -inf; kernel launches {dict(launches)}, plain-version runs 0 ({gpu})"
+    )
+    if golden is not None:
+        for route, hits in golden.items():
+            got = [(h.name, h.matches, h.fragments) for h in hits]
+            if got != MIBIG_GOLDEN or hit_key(hits) != hit_key(golden["query_draft"]):
+                raise AssertionError(f"{tag} MIBiG golden through {route}: {hits}")
+        log(f"{tag}: MIBiG golden on the card {MIBIG_GOLDEN} (identity "
+            f"{golden['query_draft'][0].identity}) through {', '.join(golden)}: all equal ({gpu})")
+
+    # the CPU route ingests and indexes the same data on its own
+    t0 = time.perf_counter()
+    host_sketch = pt.Sketch(**kw, device="cpu")
+    for ref, contigs in references:
+        host_sketch.add_draft(ref, contigs)
+    host_mapper = host_sketch.index()
+    for qi in range(PARAM_CHECKED):
+        cpu = host_mapper.query_draft(queries[qi])
+        engine = host_mapper._query_host(queries[qi])
+        if not (hit_key(draft[qi]) == hit_key(cpu) == hit_key(engine)):
+            raise AssertionError(
+                f"{tag} query {qi}: card {draft[qi]} / CPU route {cpu} / host engine {engine}")
+    check = ""
+    if params.protein:
+        cpu, engine = host_mapper.query_draft(odd_query), host_mapper._query_host(odd_query)
+        if not (hit_key(odd[0]) == hit_key(odd[1]) == hit_key(cpu) == hit_key(engine)) or sorted(
+                h.name for h in odd[0]) != sorted(expected[1]):
+            raise AssertionError(f"{tag} query 1 with X, * and lowercase: card {odd[0]} / "
+                                 f"{odd[1]} / CPU route {cpu} / host engine {engine}")
+        check += (f", query 1 with X, * and lowercase residues ({len(odd[0])} hits, through "
+                  f"query_draft and query_many)")
+        cpu_golden = golden_runs("cpu")
+        if any(hit_key(h) != hit_key(golden["query_draft"]) for h in cpu_golden.values()):
+            raise AssertionError(f"{tag} MIBiG golden on the CPU route: {cpu_golden}")
+        check += " and the MIBiG golden's five routes"
+    log(
+        f"{tag}: queries 0-{PARAM_CHECKED - 1}{check} equal the port's CPU route and the "
+        f"host NumPy engine of their own ingest and index (names, matches, fragments, "
+        f"identity ==) in {time.perf_counter() - t0:.1f} s"
+    )
+    return launches, ops
+
+
+def phase_params(gpu: str, refs, queries):
+    """Phase 15: the configurations of `PARAM_PATHS` through the user's
+    entry points (`param_path`), then each kernel against its plain
+    version on the operands of each configuration's first group (outside
+    the phase's wall time).  Returns the kernel launches."""
+    from collections import Counter
+
+    launches, walls = Counter(), {}
+    for name in PARAM_PATHS:
+        t0 = time.perf_counter()
+        n, ops = param_path(gpu, name, *param_panel(name, refs, queries))
+        walls[name] = time.perf_counter() - t0
+        launches += n
+        where = f"{name} (phase 15's first group)"
+        check_kernel(where, ops[0], gpu)
+        check_winnow(where, ops[1], gpu, timed=False)
+        check_l1(where, ops[2], gpu, timed=False)
+        check_sweep_path(where, ops[3], gpu, timed=False)
+        del ops  # it holds the parked index planes by reference
+    took = sum(walls.values())
+    log(f"[15] wall {took:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in walls.items())}; "
+        f"at most {PARAM_SECONDS:.0f} s); kernel launches {dict(launches)} ({gpu})")
+    if took > PARAM_SECONDS:
+        raise AssertionError(f"phase 15 took {took:.1f} s, past {PARAM_SECONDS:.0f} s")
+    return launches
+
+
 def check_ava_hits(hits, n_genomes: int, where: str) -> None:
     """Every genome hits exactly its family and its sibling family, itself
     at identity 100: `AVA_HITS_PER_GENOME` hits each."""
@@ -2352,6 +2692,9 @@ def main() -> int:
     launches += phase_escalation(gpu, mapper, queries, many)
     launches += phase_case(gpu, mapper, queries, many)
     del mapper, real, real_winnow, real_l1, real_sweep
+    torch.cuda.empty_cache()
+    launches += phase_params(gpu, refs, queries)
+    torch.cuda.empty_cache()
     ava_launches, ava_ops, ava_winnow, ava_l1, ava_sweep, draft_sweep = phase_ava(gpu)
     launches += ava_launches
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)

@@ -142,6 +142,8 @@ def load_library() -> ctypes.CDLL:
     lib.l1_intervals_launch.restype = i32
     lib.l2_plan_tiles.argtypes = [i64]  # NI
     lib.l2_plan_tiles.restype = i64
+    lib.l2_plan_coff_staged.argtypes = [i64]  # n_coff
+    lib.l2_plan_coff_staged.restype = i32
     lib.l2_plan_launch.argtypes = [
         ptr, ptr, ptr, i64, i64,  # iv_g0, iv_g1, iv_valid, NI, ivmax
         ptr, i64, ptr, ptr, i64,  # contig_offset, its length, cof_idx, mini_gpos, M

@@ -87,6 +87,10 @@ constexpr int kWin = 16;            // store positions read around the interpola
 constexpr int kChunkBlocksPerSM = 2;  // the chunk kernel's blocks an SM, at least (64 registers)
 constexpr long long kBig = 1LL << 30;  // the window-position pad
 
+// the contig lookup stages the table of n_coff contig offsets in shared
+// memory, or reads it from global memory past kCoffShared entries
+__host__ __device__ inline bool coff_staged(long long n_coff) { return n_coff <= kCoffShared; }
+
 // torch.clamp(x, lo, hi): min(max(x, lo), hi), also when lo > hi
 __device__ __forceinline__ long long clamp64(long long x, long long lo, long long hi) {
     return min(max(x, lo), hi);
@@ -225,7 +229,7 @@ l2_plan_tiles_kernel(const int* __restrict__ g0, const int* __restrict__ g1,
     // the interval's loads in flight beside the staging of the table
     const bool live = i < NI && valid[i];
     const long long lo_g = live ? g0[i] : 0, hi_g = i < NI ? g1[i] : 0;
-    const bool staged = n_coff <= kCoffShared;  // the same in every thread
+    const bool staged = coff_staged(n_coff);  // the same in every thread
     if (staged) {
         for (int k = tid; k < n_coff; k += kTile) s_coff[k] = coff[k];
         __syncthreads();
@@ -366,6 +370,10 @@ extern "C" {
 
 // The tiles a plan of NI intervals runs on: the length of its workspace.
 long long l2_plan_tiles(long long NI) { return NI > 0 ? blocks(NI, kTile) : 0; }
+
+// 1 when the contig lookup stages a table of n_coff contig offsets in
+// shared memory, 0 when it reads the table from global memory.
+int l2_plan_coff_staged(long long n_coff) { return coff_staged(n_coff) ? 1 : 0; }
 
 // The plan (see the top of the file) of the intervals g0, g1 (NI,) int32
 // and valid (NI,) bool, ivmax a fragment, on `stream`: seq and ends (NI,)

@@ -2,6 +2,16 @@
 
     python3 tools/torch_query_profile.py [--refs 10] [--ref-len 2000000] [--queries 4]
     python3 tools/torch_query_profile.py --ava 512 [--groups 8] [--draft 4]
+    python3 tools/torch_query_profile.py --panel bgc --protein --fragment-length 100
+    python3 tools/torch_query_profile.py --panel phages --k 14 --fragment-length 1000
+    python3 tools/torch_query_profile.py --fragment-length 5000
+
+``--k``, ``--fragment-length`` and ``--protein`` set the ``Sketch``'s
+parameters (default k 16, 3000, nucleotide); with ``--protein`` the small
+batch draws its letters from the 20 amino acids.  ``--panel bgc`` and
+``--panel phages`` take ``chip_smoke.py`` phase 15's protein and phage
+panels (``chip_smoke.param_panel``: 2,048 drafts of 24 proteins, or 1,024
+genomes of 30-80 kb) and their 32 queries.
 
 Builds the ``bench.py`` small-batch workload (random references, queries
 mutated at 3%), or with ``--ava N`` the N-genome all-vs-all of
@@ -10,7 +20,7 @@ is the genomes of the first G groups of the all-vs-all's packing, which
 ``query_many`` runs as about G groups), warms one `Session`, then over
 steady ``query_many`` passes reports:
 
-* per-stage stream time, from CUDA events (``bench_torch.spans``) around
+* per-stage stream time a pass and a group, from CUDA events (``bench_torch.spans``) around
   each stage of ``session._query_block`` (fragment winnow, L1, L2 chunk
   sweep, gate and CGI) and around the identity fold, with the host wall
   time of the pass;
@@ -271,7 +281,14 @@ def main() -> int:
                     help="with --ava: the first G groups of the all-vs-all")
     ap.add_argument("--draft", type=int, default=0, metavar="D",
                     help="with --ava: also split D query_draft calls by step")
+    ap.add_argument("--k", type=int, default=16, help="the Sketch's k-mer size")
+    ap.add_argument("--fragment-length", type=int, default=3000,
+                    help="the Sketch's fragment length")
+    ap.add_argument("--protein", action="store_true", help="a protein Sketch (w 1)")
+    ap.add_argument("--panel", choices=("small", "bgc", "phages"), default="small",
+                    help="chip_smoke.py phase 15's protein or phage panel and its queries")
     args = ap.parse_args()
+    sketch_kw = dict(k=args.k, fragment_length=args.fragment_length, protein=args.protein)
 
     import torch
 
@@ -285,7 +302,7 @@ def main() -> int:
 
     if args.ava:
         genomes = workloads.ava_genomes(n_genomes=args.ava)
-        sk = pt.Sketch()
+        sk = pt.Sketch(**sketch_kw)
         for i, g in enumerate(genomes):
             sk.add_genome(f"g{i}", g)
         mapper = sk.index()
@@ -293,25 +310,38 @@ def main() -> int:
         batch = _first_groups(session, [[g] for g in genomes], args.groups)
         workload = (f"all-vs-all of {args.ava} genomes ({sum(len(g) for g in genomes)} bp "
                     f"indexed), the {len(batch)} genomes of its first {args.groups} groups")
+    elif args.panel != "small":
+        import chip_smoke
+
+        name = {"bgc": "protein_bgc", "phages": "nucl_k14_f1000"}[args.panel]
+        references, batch, _, _ = chip_smoke.param_panel(name)
+        sk = pt.Sketch(**sketch_kw)
+        for ref, contigs in references:
+            sk.add_draft(ref, contigs)
+        session = S.Session(sk.index())
+        workload = (f"chip_smoke.py phase 15's {name} panel ({len(references)} references, "
+                    f"{sum(len(c) for _, contigs in references for c in contigs)} letters), "
+                    f"its {len(batch)} queries")
     else:
         rng = np.random.default_rng(0)
-        acgt = np.frombuffer(b"ACGT", np.uint8)
-        refs = [rng.choice(acgt, size=args.ref_len) for _ in range(args.refs)]
+        letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY" if args.protein else b"ACGT", np.uint8)
+        refs = [rng.choice(letters, size=args.ref_len) for _ in range(args.refs)]
         batch = []
         for i in range(args.queries):
             q = refs[i % args.refs].copy()
             mut = rng.random(q.shape[0]) < 0.03
-            q[mut] = rng.choice(acgt, size=int(mut.sum()))
+            q[mut] = rng.choice(letters, size=int(mut.sum()))
             batch.append([q.tobytes()])
-        sk = pt.Sketch()
+        sk = pt.Sketch(**sketch_kw)
         for i, r in enumerate(refs):
             sk.add_genome(f"ref{i}", r.tobytes())
         session = S.Session(sk.index())
         workload = f"{args.refs} x {args.ref_len} bp refs, {args.queries} queries"
+    workload += f"; Sketch {sketch_kw} (w {session.params.window_size})"
     session.warmup()
     session.query_many(batch)
     torch.cuda.synchronize()
-    qbp = sum(len(q[0]) for q in batch)
+    qbp = sum(len(c) for q in batch for c in q)
     dispatches = session.stats["dispatches"]
     session.query_many(batch)
     groups = session.stats["dispatches"] - dispatches
@@ -336,9 +366,10 @@ def main() -> int:
           f"pass), budgets {session.budgets}")
     print(f"steady query_many wall {wall_ms:.3f} ms (median of {args.passes}; "
           f"{qbp / 1e3 / wall_ms:.2f} Mbp/s); stream time per pass by stage "
-          "(CUDA events, launch gaps included):")
+          "(CUDA events, launch gaps included), and a group:")
     for k, v in tot.items():
-        print(f"  {k:14s} {v:9.3f} ms  {100 * v / wall_ms:5.1f}% of wall")
+        print(f"  {k:14s} {v:9.3f} ms  {100 * v / wall_ms:5.1f}% of wall  {v / groups:9.4f} ms "
+              "a group")
     rest = wall_ms - block - tot["fold"]
     print(f"  {'host+transfer':14s} {rest:9.3f} ms  {100 * rest / wall_ms:5.1f}% of wall "
           "(wall less the block and the fold)")
