@@ -4,6 +4,10 @@ Run from the root of a checkout, with one NVIDIA Hopper card visible:
 
     python3 chip_smoke.py
 
+With four cards visible it also runs the multi-card phases on them (5's
+one cell a card, 8 and 10's ``(1, 4)`` mesh); with fewer, those print
+one line each that they did not run.
+
 It builds the port's host C extension (``pyfastani_tpu_torch/_native/``)
 and CUDA kernels (``pyfastani_tpu_torch/csrc/``) and runs these phases in
 order, one line each; any failure exits non-zero without printing a
@@ -32,7 +36,12 @@ result:
    count of that run;
 5. phase 4's panel on a ``(2, 2)`` mesh (``ShardedSession``): four cards
    when there are four, else ``cuda:0`` in all four cells; hits equal
-   phase 4's and the host engine's;
+   phase 4's and the host engine's; each shard folded on its home card
+   (the card of its cell ``(0, sh)``) and nowhere else, every other
+   kernel launched on every card (`counted_by_card`); the bytes of slots
+   and of limbs one pass moved between cards, beside the parent commit's
+   placement counted from the same shapes (`parent_traffic`), and each
+   card's launches and peak memory;
 6. a steady ``query_many`` of 8 queries at ``q_capacity=2`` (4 groups
    through the two pinned staging slots) under
    ``torch.cuda.set_sync_debug_mode("error")``, so that no pass may wait
@@ -41,9 +50,16 @@ result:
    ``tools/torch_query_profile.py`` computes it);
 7. the device ingest winnow (``winnow_sequence_device``) of one 2 Mbp
    reference, bitwise against the host C winnow, with Mbp/s;
-8. the two-process NCCL mesh (``torch.distributed``, one card per
-   process) when there are two cards; otherwise one line says it did not
-   run;
+8. (run last, after phase 10's four-card run) with four cards, four
+   NCCL processes (``torch.distributed``, one card each, `nccl_child`):
+   phase 4's panel on a ``(2, 2)`` mesh from its two-shard ``.npz``
+   checkpoint, then the all-vs-all on a ``(1, 4)`` mesh from phase 10's
+   four-shard one, each
+   rank's hits equal to phase 4's and to phase 10's one-card run (4096
+   hits); for each rank the index load, park and ``query_many`` times,
+   Mbp/s, peak memory, the bytes one pass sent and gathered beside the
+   parent's placement, and its launches (the fold once a pass a shard the
+   rank is home of); otherwise one line says it did not run;
 9. budget escalation on the card: phase 4's panel through a ``Session``
    whose budgets are too small escalates at least twice and gives phase
    4's hits;
@@ -57,9 +73,13 @@ result:
     genomes of its family and its sibling family, itself at identity 100
     (4096 hits, as the JAX package returned); g0 and g4 equal the host
     NumPy engine on the same index (g0 alone when the two would take
-    over 90 s); with four cards, the same on a ``(1, 4)`` mesh, the index
-    split by genome, equal to the one-card hits, else one line says it
-    did not run;
+    over 90 s); with four cards, after the kernel checks on this phase's
+    operands (phases 3, 12 to 14; in runs where the four-card phases came
+    first, ``torch.profiler`` then recorded no device time on ``cuda:0``),
+    the same on a ``(1, 4)`` mesh, the index split by genome, equal to
+    the one-card hits, every kernel on every card, with phase 5's lines of
+    bytes, launches and memory by card (its index then saved as phase 8's
+    checkpoint), else one line says it did not run;
 11. (run after phase 9, while phase 4's index is still parked) phase 4's
     batch as uppercase ``bytes``, lowercase ``bytes``, a mixed-case
     ``bytearray`` and a mixed-case uint8 ``ndarray``: the session stages
@@ -158,11 +178,11 @@ result:
     against its plain version on the operands of each configuration's
     first group (the L2 kernel timed, as in phase 3).
 
-Phases 4 to 6, 9, 10, 11 and 15 each reset the kernels' launch counters
+Phases 4 to 6, 8 to 11 and 15 each reset the kernels' launch counters
 before their run and fail unless every kernel ran and no plain version
 did.  The last lines are the card, a JSON object with one entry per
 kernel (launches summed over phases 4 to 6, 9, 10's steady pass, 11 and
-15;
+15, and with four cards phase 10's four-card pass and phase 8's ranks;
 times and bound at the case its ``case`` key names: ``real`` for the L2
 kernel, ``ava`` for the others), and ``{"ok": true, "device":
 {...}}``.
@@ -218,7 +238,8 @@ PIPE_QUERIES, PIPE_Q_CAPACITY, PIPE_FRAG_CAPACITY = 8, 2, 2048
 # from the one before at 9%, family lengths cycling 1/2/3/5 Mbp (1408 Mbp)
 AVA_SEED = 7
 AVA_HITS_PER_GENOME = 2 * AVA_FAMILY  # its own family and its sibling family
-NCCL_TIMEOUT = 300
+# phase 8: four processes, one card each
+NCCL_WORLD, NCCL_TIMEOUT = 4, 600
 # phase 9: budgets small enough that phase 4's panel escalates (the tiny
 # budgets of tests/test_torch_sharded.py would still overflow hmax after
 # the session's six attempts on 2 Mbp genomes)
@@ -1303,13 +1324,23 @@ def scratch_clean(scratch, where: str) -> None:
 
 
 def check_scratch(session, where: str) -> None:
-    """After a session's passes: its scratch bins all ``-inf``, none dirty."""
+    """After a session's passes: the scratch bins of every shard it is
+    home of all ``-inf``, on the device of the shard's home cell ``(0,
+    sh)``, none dirty."""
     import torch
 
-    torch.cuda.synchronize()
+    for dev in session._devices:
+        torch.cuda.synchronize(dev)
     if session._scratch_dirty:
         raise AssertionError(f"{where}: the session's scratch is marked dirty")
-    scratch_clean(session._scratch, where)
+    if sorted(session._scratch) != session._homes:
+        raise AssertionError(f"{where}: scratch of shards {sorted(session._scratch)}, "
+                             f"home of {session._homes}")
+    for sh, scratch in session._scratch.items():
+        if scratch.device != session.mesh.devices[0][sh]:
+            raise AssertionError(f"{where}: shard {sh}'s scratch on {scratch.device}, its home "
+                                 f"is {session.mesh.devices[0][sh]}")
+        scratch_clean(scratch, f"{where}, shard {sh}")
 
 
 def _same_shape(what: str, got, want) -> None:
@@ -1820,15 +1851,20 @@ def read_counts(kind: str) -> dict:
             for name, (mod, prefix) in kernel_counters().items()}
 
 
+def reset_counts() -> None:
+    """Every kernel's counters set to 0."""
+    for mod, prefix in kernel_counters().values():
+        for kind in ("launches", "reference_calls"):
+            setattr(mod, prefix + kind, 0)
+
+
 def counted(run):
     """``run()`` with every kernel's counters set to 0 just before it and
     read just after: ``(result, launches)``, ``launches`` a `Counter` by
     kernel name; fails unless every kernel ran and no plain version did."""
     from collections import Counter
 
-    for mod, prefix in kernel_counters().values():
-        for kind in ("launches", "reference_calls"):
-            setattr(mod, prefix + kind, 0)
+    reset_counts()
     out = run()
     launches = Counter(read_counts("launches"))
     plain = read_counts("reference_calls")
@@ -1838,6 +1874,97 @@ def counted(run):
             f"{plain} times"
         )
     return out, launches
+
+
+def counted_by_card(run, mesh):
+    """`counted` of ``run()``, and each card's launches: ``(result,
+    launches, by_card)``, ``by_card`` a `Counter` by kernel name for each
+    card (``"cuda:i"``), read as the growth of the wrapper's counter in
+    each of its calls from the session, by the card of the call's first
+    tensor; fails unless every kernel launched on every card of ``mesh``
+    and the fold on the home cards of its shards (cells ``(0, sh)``)
+    alone."""
+    from collections import Counter, defaultdict
+
+    from pyfastani_tpu_torch import session as session_module
+
+    by_card = defaultdict(Counter)
+    originals = {name: getattr(session_module, name) for name in kernel_counters()}
+
+    def per_card(name, fn, mod, attr):
+        def call(*args, **kwargs):
+            before = getattr(mod, attr)
+            out = fn(*args, **kwargs)
+            by_card[str(args[0].device)][name] += getattr(mod, attr) - before
+            return out
+        return call
+
+    for name, (mod, prefix) in kernel_counters().items():
+        setattr(session_module, name, per_card(name, originals[name], mod, prefix + "launches"))
+    try:
+        out, launches = counted(run)
+    finally:
+        for name, fn in originals.items():
+            setattr(session_module, name, fn)
+    homes = {str(dev) for dev in mesh.devices[0]}
+    for card in {str(dev) for row in mesh.devices for dev in row}:
+        missing = [name for name in kernel_counters()
+                   if by_card[card][name] <= 0 and (name != "fold_bins" or card in homes)]
+        if missing or (card not in homes and by_card[card]["fold_bins"]):
+            raise AssertionError(f"{card} launched no {missing} or folded away from a home: "
+                                 f"{dict(by_card[card])}")
+    if sum(by_card.values(), Counter()) != launches:
+        raise AssertionError(f"launches by card {dict(by_card)} do not sum to {dict(launches)}")
+    return out, launches, by_card
+
+
+def parent_traffic(session) -> dict:
+    """The bytes that the parent commit's placement moved in a pass of the
+    shape of ``session``'s last pass, counted from the shapes: every
+    cell's slots to the merge device (the home of shard 0), where every
+    shard was folded; across processes an ``all_gather`` of every cell's
+    slots and of each process's flags to every process."""
+    import torch
+
+    t, mesh = session.traffic, session.mesh
+    if not mesh.distributed:
+        merge = mesh.devices[0][0]
+        away = sum(dev != merge for row in mesh.devices for dev in row)
+        return {"slots_across_cards": away * t["cell_slots"], "limbs_across_cards": 0}
+    cells = session.n_data * session.n_shard
+    return {"collectives": torch.distributed.get_world_size() * (cells * t["cell_slots"] + 6 * 4)}
+
+
+def traffic_line(session) -> str:
+    """The bytes ``session``'s last pass moved, beside the parent's."""
+    moved = {k: v for k, v in session.traffic.items() if k != "cell_slots"}
+    return (f"bytes moved in one pass {moved} (one cell's slots {session.traffic['cell_slots']}); "
+            f"the parent's placement, counted from the same shapes: {parent_traffic(session)}")
+
+
+def card_lines(tag: str, by_card, held, peaks) -> None:
+    """One line a card: its launches by kernel, the memory it held before
+    the run and its peak memory in the run."""
+    for card in sorted(by_card):
+        log(f"{tag} {card}: kernel launches {dict(by_card[card])}; device memory (allocated) "
+            f"{held[card] / 2**30:.3f} GiB held before the run, {peaks[card] / 2**30:.3f} GiB "
+            f"at its peak")
+
+
+def reset_peaks(cards) -> dict:
+    """Each card's peak memory statistic reset; returns the memory each
+    holds."""
+    import torch
+
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
+    return {card: torch.cuda.memory_allocated(card) for card in cards}
+
+
+def read_peaks(cards) -> dict:
+    import torch
+
+    return {card: torch.cuda.max_memory_allocated(card) for card in cards}
 
 
 def phase_query(gpu: str, refs, all_queries, unrelated):
@@ -1938,31 +2065,39 @@ def phase_mesh(gpu: str, mapper, queries, want):
         devices, where = [f"cuda:{i}" for i in range(4)], "four cards, one cell each"
     else:
         devices, where = ["cuda:0"] * 4, f"cuda:0 in all four cells ({n_dev} card(s) visible)"
+    cards = sorted(set(devices))
     mesh = make_mesh(2, 2, devices=devices)
     batch = [[q] for q in queries[:N_QUERIES]]
 
     def run():
         session = ShardedSession(mapper, mesh)
+        held = reset_peaks(cards)
         t0 = time.perf_counter()
         first = session.query_many(batch)
-        torch.cuda.synchronize()
+        for card in cards:
+            torch.cuda.synchronize(card)
         t_first = time.perf_counter() - t0
         t0 = time.perf_counter()
         again = session.query_many(batch)
-        torch.cuda.synchronize()
-        return session, first, again, t_first, time.perf_counter() - t0
+        for card in cards:
+            torch.cuda.synchronize(card)
+        return session, held, first, again, t_first, time.perf_counter() - t0
 
-    (session, first, again, t_first, t_steady), launches = counted(run)
+    (session, held, first, again, t_first, t_steady), launches, by_card = counted_by_card(run, mesh)
+    peaks = read_peaks(cards)
     check_scratch(session, "[5] (2, 2) mesh")
     for qi, (a, b) in enumerate(zip(first, again)):
         if hit_key(a) != hit_key(want[qi]) or hit_key(b) != hit_key(want[qi]):
             raise AssertionError(f"(2, 2) mesh query {qi}: {a} != phase 4 / host engine {want[qi]}")
+    homes = {sh: str(mesh.devices[0][sh]) for sh in range(2)}
     log(
         f"[5] (2, 2) mesh on {where}: hits of {N_QUERIES} queries equal phase 4 and the "
         f"host engine; query_many {t_first:.3f} s first, {t_steady:.3f} s steady; "
         f"budgets {session.budgets}; kernel launches {dict(launches)}, plain-version runs 0 "
         f"({gpu})"
     )
+    log(f"[5] each shard folded on its home card {homes}; {traffic_line(session)}")
+    card_lines("[5]", by_card, held, peaks)
     return launches
 
 
@@ -2386,10 +2521,10 @@ def phase_ava(gpu: str):
     one card: ``Sketch`` -> ``add_genome`` x N -> ``index()`` ->
     ``Session(mapper)`` -> ``warmup()`` -> ``query_many`` of every genome,
     twice (the first pass timed apart; it also captures the operands of
-    its first L2 sweep).  Then the host NumPy engine on g0 and g4, and the
-    four-card (1, 4) mesh when there are four cards.  Returns the kernel
-    launches of the steady pass and the captured operands of the L2
-    kernel and of the winnow."""
+    its first L2 sweep).  Then the host NumPy engine on g0 and g4.
+    Returns the kernel launches of the steady pass, the captured operands
+    of the path's kernels, and the mapper, the batch and the hits for the
+    four-card phases (`phase_ava_four_cards`, phase 8)."""
     import torch
 
     import pyfastani_tpu_torch as pt
@@ -2525,14 +2660,19 @@ def phase_ava(gpu: str):
     log(f"[10] query_draft of g0 on the same index: hits equal the all-vs-all's ({gpu})")
     mapper._session = None
     torch.cuda.empty_cache()
-    phase_ava_four_cards(gpu, mapper, batch, first)
-    return launches, operands, winnow_ops, l1_ops, sweep_ops, draft_ops
+    return launches, operands, winnow_ops, l1_ops, sweep_ops, draft_ops, mapper, batch, first
 
 
-def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
+def phase_ava_four_cards(gpu: str, mapper, batch, want, work):
     """The all-vs-all on a (1, 4) mesh over four cards, the index split by
     genome (``build_sharded_index(mapper, 4)``): one pass, hits equal the
-    one-card run."""
+    one-card run, every kernel launched on every card, each card's
+    launches and peak memory and the bytes one pass moved.  With ``work``
+    (phase 8 runs) the split index is saved there as phase 8's `.npz`
+    checkpoint, and the genomes beside it.  Returns the kernel
+    launches."""
+    from collections import Counter
+
     import torch
 
     from pyfastani_tpu_torch.parallel.mesh import make_mesh
@@ -2541,7 +2681,7 @@ def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
     n_dev = torch.cuda.device_count()
     if n_dev < 4:
         log(f"[10] four-card (1, 4) all-vs-all: not run, it needs four cards ({n_dev} visible)")
-        return
+        return Counter()
     devices = [f"cuda:{i}" for i in range(4)]
 
     def sync():
@@ -2549,27 +2689,47 @@ def phase_ava_four_cards(gpu: str, mapper, batch, want) -> None:
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    session = ShardedSession(mapper, make_mesh(1, 4, devices=devices))
+    mesh = make_mesh(1, 4, devices=devices)
+    session = ShardedSession(mapper, mesh)
     sync()
     t_park = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session.warmup()
+    sync()
+    t_warm = time.perf_counter() - t0
 
     def run():
+        held = reset_peaks(devices)
         t0 = time.perf_counter()
         hits = session.query_many(batch)
         sync()
-        return hits, time.perf_counter() - t0
+        return hits, held, time.perf_counter() - t0
 
-    (hits, took), launches = counted(run)
+    (hits, held, took), launches, by_card = counted_by_card(run, mesh)
+    peaks = read_peaks(devices)
     check_scratch(session, "[10] four-card (1, 4) all-vs-all")
     if [hit_key(h) for h in hits] != [hit_key(h) for h in want]:
         raise AssertionError("four-card (1, 4) all-vs-all differs from the one-card run")
     qbp = sum(len(g[0]) for g in batch)
     log(
         f"[10] four-card (1, 4) all-vs-all, index split by genome: hits equal the one-card "
-        f"run; shard build and park {t_park:.3f} s, query_many {took:.3f} s = "
+        f"run; shard build and park {t_park:.3f} s, warmup {t_warm:.3f} s, query_many {took:.3f} s = "
         f"{qbp / 1e6 / took:.2f} Mbp/s; budgets {session.budgets}; kernel launches {dict(launches)}, "
         f"plain-version runs 0 ({gpu})"
     )
+    log(f"[10] four-card (1, 4): each shard folded on its own card; {traffic_line(session)}")
+    card_lines("[10] four-card (1, 4)", by_card, held, peaks)
+    if work is not None:
+        t0 = time.perf_counter()
+        session.sidx.save(os.path.join(work, "ava.npz"))
+        np.save(os.path.join(work, "ava_lengths.npy"), np.array([len(g[0]) for g in batch]))
+        with open(os.path.join(work, "ava.bin"), "wb") as fh:
+            for g in batch:
+                fh.write(g[0])
+        log(f"[10] the 4-shard index saved as phase 8's .npz checkpoint "
+            f"({os.path.getsize(os.path.join(work, 'ava.npz')) / 2**30:.3f} GiB) and the "
+            f"genomes beside it in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _free_port() -> int:
@@ -2578,28 +2738,46 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_nccl(gpu: str, mapper, query, want) -> None:
-    """Two processes, one card each, on a (2, 2) mesh over NCCL."""
+def prepare_nccl(mapper, queries):
+    """With four cards, phase 8's directory, holding phase 4's index split
+    in two shards as an ``.npz`` checkpoint and its queries; else
+    ``None``."""
     import torch
 
     from pyfastani_tpu_torch.index import build_sharded_index
 
-    n_dev = torch.cuda.device_count()
-    if n_dev < 2:
-        log(f"[8] two-process NCCL mesh: not run, it needs a second card ({n_dev} visible)")
-        return
+    if torch.cuda.device_count() < NCCL_WORLD:
+        return None
     work = os.path.join(ROOT, "build", "chip_smoke_nccl")
     os.makedirs(work, exist_ok=True)
-    build_sharded_index(mapper, 2).save(os.path.join(work, "index.npz"))
-    with open(os.path.join(work, "query.bin"), "wb") as fh:
-        fh.write(query)
+    build_sharded_index(mapper, 2).save(os.path.join(work, "small.npz"))
+    for i, q in enumerate(queries):
+        with open(os.path.join(work, f"query{i}.bin"), "wb") as fh:
+            fh.write(q)
+    return work
+
+
+def phase_nccl(gpu: str, work, small_want, ava_want):
+    """Four processes, one card each, over NCCL (`nccl_child`): phase 4's
+    panel on a (2, 2) mesh, then the all-vs-all on a (1, 4) mesh from
+    phase 10's checkpoint.  Every rank's hits equal phase 4's and phase
+    10's one-card run.  Returns the kernel launches of every rank."""
+    from collections import Counter
+
+    import torch
+
+    if work is None:
+        log(f"[8] four-process NCCL meshes: not run, they need {NCCL_WORLD} cards "
+            f"({torch.cuda.device_count()} visible)")
+        return Counter()
     port = str(_free_port())
+    t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--nccl-rank", str(rank), port, work],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )
-        for rank in (1, 0)
+        for rank in reversed(range(NCCL_WORLD))
     ]
     logs = []
     try:
@@ -2612,35 +2790,115 @@ def phase_nccl(gpu: str, mapper, query, want) -> None:
                 p.kill()
                 p.wait()
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError("NCCL child failed:\n" + "\n".join(logs)[-4000:])
-    for rank in (0, 1):
-        with open(os.path.join(work, f"hits{rank}.json")) as fh:
-            got = [tuple(h) for h in json.load(fh)]
-        if got != [tuple(k) for k in hit_key(want)]:
-            raise AssertionError(f"NCCL rank {rank}: {got} != host engine {hit_key(want)}")
-    log(f"[8] two-process NCCL (2, 2) mesh, one card per process: both ranks' hits equal "
-        f"the host engine ({gpu})")
+        raise AssertionError("NCCL child failed:\n" + "\n".join(logs)[-6000:])
+    took = time.perf_counter() - t0
+    wants = {"small": [[list(k) for k in hit_key(h)] for h in small_want],
+             "ava": [[list(k) for k in hit_key(h)] for h in ava_want]}
+    launches = Counter()
+    for rank in range(NCCL_WORLD):
+        with open(os.path.join(work, f"out{rank}.json")) as fh:
+            out = json.load(fh)
+        for part, shape in (("small", "(2, 2)"), ("ava", "(1, 4)")):
+            run = out[part]
+            if run["hits"] != wants[part]:
+                raise AssertionError(f"NCCL rank {rank} {shape}: hits differ from the one-card run")
+            folds = run["passes"] * len(run["homes"])
+            if (any(run["plain"].values()) or run["launches"]["fold_bins"] != folds
+                    or min(v for k, v in run["launches"].items() if k != "fold_bins") <= 0):
+                raise AssertionError(f"NCCL rank {rank} {shape}: launches {run['launches']}, plain "
+                                     f"versions {run['plain']}, {folds} folds expected")
+            launches += Counter(run["launches"])
+            n_hits = sum(len(h) for h in run["hits"])
+            log(
+                f"[8] rank {rank} (cuda:{rank}) {shape} mesh, home of shards {run['homes']}: "
+                f"{n_hits} hits, equal to the one-card run; index load {run['load_s']:.3f} s, "
+                f"park {run['park_s']:.3f} s, warmup {run['warmup_s']:.3f} s, query_many "
+                f"{run['query_s']:.3f} s = {run['mbp_s']:.2f} Mbp/s over {run['passes']} passes; "
+                f"device memory (allocated) {run['held'] / 2**30:.3f} GiB held before, "
+                f"{run['peak'] / 2**30:.3f} GiB at its peak; bytes of one "
+                f"pass {run['traffic']}, the parent's placement counted from the same shapes "
+                f"{run['parent']}; kernel launches {run['launches']}, plain-version runs 0"
+            )
+    log(f"[8] four NCCL processes, one card each: phase 4's panel on a (2, 2) mesh and the "
+        f"{AVA_GENOMES}-genome all-vs-all on a (1, 4) mesh from its .npz checkpoint, every "
+        f"rank's hits equal the one-card runs; {took:.1f} s of wall ({gpu})")
+    return launches
+
+
+def mesh_child(rank: int, shape, path: str, batch) -> dict:
+    """One of phase 8's runs in rank ``rank``: the checkpoint at ``path``
+    restored onto a ``shape`` mesh of one card a process, ``warmup()``,
+    then one ``query_many`` of ``batch``, counted and timed."""
+    import torch
+
+    from pyfastani_tpu_torch.parallel.mesh import make_mesh
+    from pyfastani_tpu_torch.parallel.sharded import ShardedIndex, ShardedSession
+
+    dev = torch.device("cuda", rank)
+    t0 = time.perf_counter()
+    index = ShardedIndex.load(path)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session = ShardedSession.from_index(index, mesh=make_mesh(*shape, devices=[dev]))
+    torch.cuda.synchronize(dev)
+    t_park = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session.warmup()
+    torch.cuda.synchronize(dev)
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    before = session.stats["dispatches"]
+    reset_counts()
+    torch.distributed.barrier()  # the ranks' clocks start together
+    t0 = time.perf_counter()
+    hits = session.query_many(batch)
+    torch.cuda.synchronize(dev)
+    took = time.perf_counter() - t0
+    launches, plain = read_counts("launches"), read_counts("reference_calls")
+    check_scratch(session, f"[8] rank {rank} {shape}")
+    return {
+        "hits": [hit_key(h) for h in hits], "homes": session._homes,
+        "load_s": t_load, "park_s": t_park, "warmup_s": t_warm, "query_s": took,
+        "mbp_s": sum(len(c) for g in batch for c in g) / 1e6 / took,
+        "passes": session.stats["dispatches"] - before,
+        "held": held, "peak": torch.cuda.max_memory_allocated(dev), "traffic": session.traffic,
+        "parent": parent_traffic(session), "launches": launches, "plain": plain,
+    }
 
 
 def nccl_child(rank: int, port: str, work: str) -> int:
+    import datetime
+
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     torch.cuda.set_device(rank)
+    # the processes share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or NCCL_WORLD) // NCCL_WORLD))
     dist.init_process_group(
-        "nccl", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=NCCL_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=NCCL_TIMEOUT),
     )
     try:
-        from pyfastani_tpu_torch.parallel.mesh import make_mesh
-        from pyfastani_tpu_torch.parallel.sharded import ShardedIndex, ShardedSession
-
-        mesh = make_mesh(2, 2, devices=[f"cuda:{rank}"] * 2)
-        session = ShardedSession.from_index(ShardedIndex.load(os.path.join(work, "index.npz")), mesh=mesh)
-        with open(os.path.join(work, "query.bin"), "rb") as fh:
-            hits = session.query([fh.read()])
-        with open(os.path.join(work, f"hits{rank}.json"), "w") as fh:
-            json.dump(hit_key(hits), fh)
+        small = []
+        for i in range(N_QUERIES):
+            with open(os.path.join(work, f"query{i}.bin"), "rb") as fh:
+                small.append([fh.read()])
+        with open(os.path.join(work, "ava.bin"), "rb") as fh:
+            seq = fh.read()
+        ends = np.cumsum(np.load(os.path.join(work, "ava_lengths.npy")))
+        ava = [[seq[a:b]] for a, b in zip([0, *ends[:-1]], ends)]
+        out = {
+            "small": mesh_child(rank, (2, 2), os.path.join(work, "small.npz"), small),
+            "ava": mesh_child(rank, (1, 4), os.path.join(work, "ava.npz"), ava),
+        }
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "pyfastani_tpu")]
+        if loaded:
+            raise AssertionError(f"modules of JAX or of the JAX package were imported: {loaded}")
+        with open(os.path.join(work, f"out{rank}.json"), "w") as fh:
+            json.dump(out, fh)
     finally:
         dist.destroy_process_group()
     return 0
@@ -2688,14 +2946,15 @@ def main() -> int:
     launches += phase_mesh(gpu, mapper, queries, many)
     launches += phase_pipeline(gpu, mapper, queries)
     phase_ingest(gpu, refs)
-    phase_nccl(gpu, mapper, queries[0], many[0])
+    nccl_work = prepare_nccl(mapper, queries[:N_QUERIES])
     launches += phase_escalation(gpu, mapper, queries, many)
     launches += phase_case(gpu, mapper, queries, many)
     del mapper, real, real_winnow, real_l1, real_sweep
     torch.cuda.empty_cache()
     launches += phase_params(gpu, refs, queries)
     torch.cuda.empty_cache()
-    ava_launches, ava_ops, ava_winnow, ava_l1, ava_sweep, draft_sweep = phase_ava(gpu)
+    (ava_launches, ava_ops, ava_winnow, ava_l1, ava_sweep, draft_sweep, ava_mapper, ava_batch,
+     ava_hits) = phase_ava(gpu)
     launches += ava_launches
     check_kernel("ava (the first L2 sweep of the all-vs-all's first pass)", ava_ops, gpu)
     winnow = check_winnow("ava (the all-vs-all's first group)", ava_winnow, gpu)
@@ -2703,6 +2962,14 @@ def main() -> int:
     sweep = check_sweep_path("ava (the all-vs-all's first group)", ava_sweep, gpu, timed=True)
     check_sweep_path("draft (one query_draft call on the all-vs-all's panel)", draft_sweep, gpu,
                      timed=True)
+    # the four-card phases come last: after them, torch.profiler's traces
+    # on cuda:0 came back empty (the kernels' device times above)
+    del ava_ops, ava_winnow, ava_l1, ava_sweep, draft_sweep
+    torch.cuda.empty_cache()
+    launches += phase_ava_four_cards(gpu, ava_mapper, ava_batch, ava_hits, nccl_work)
+    del ava_mapper, ava_batch
+    torch.cuda.empty_cache()
+    launches += phase_nccl(gpu, nccl_work, many, ava_hits)
     loaded = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pyfastani_tpu" or m.startswith("pyfastani_tpu.")

@@ -18,13 +18,19 @@ has four stages:
    pass's flags row.
 
 Each stage's wrapper launches a CUDA kernel for CUDA tensors and runs its
-plain torch version for CPU tensors.  The cells' slots meet on one merge
-device (across processes through ``all_gather``), and an exact fixed-point
-identity fold (`_fold`, `ops.cgi.fold_bins`) reduces each shard's slots
-to per-genome sums through a persistent ``-inf`` scratch of the dense
-per-(query genome, contig, bin) bins: the max over the data rows (the JAX
-package's ``pmax``) goes in, and each touched bin is read once and left
-``-inf``, so no pass fills, merges or re-reads the dense bins.
+plain torch version for CPU tensors.  Each shard has a home, the device
+and process of its cell ``(0, sh)``, as the JAX package's ``block_fn``
+folds each shard on its own devices.  The slots of the shard's other data
+rows meet there (`_merge`: a copy between cards, or a point-to-point
+transfer from another process), and an exact fixed-point identity fold
+(`_fold`, `ops.cgi.fold_bins`) reduces them to per-genome limbs through
+the shard's persistent ``-inf`` scratch of the dense per-(query genome,
+contig, bin) bins, which lives on its home device: the max over the data
+rows (the JAX package's ``pmax``) goes in, and each touched bin is read
+once and left ``-inf``, so no pass fills, merges or re-reads the dense
+bins.  Only the limbs and the flags then meet on one merge device (across
+processes through one ``all_gather`` and one ``all_reduce``, the
+counterpart of ``process_allgather``).
 
 Passes are pipelined: fragments stage as the raw bytes of the input
 into two recycled host slots (pinned for CUDA devices) and copy to the
@@ -77,6 +83,20 @@ __all__ = ["ShardedSession", "Session"]
 _CH_SLAB = 256  # the chunk budget is a multiple of this
 _BUDGET_NAMES = ["smax", "hmax", "ivmax", "t_chunks", "rmax"]
 _N_FLAGS = len(_BUDGET_NAMES) + 1  # the budget overflows, then the L2 range flag
+# `ShardedSession.traffic`: one cell's slots; the slots copied to a home on
+# another device of this process; the slots sent to or received from
+# another process; the limbs copied from a home to the merge device; the
+# bytes this process's limb all_gather and flag all_reduce received
+_TRAFFIC = ("cell_slots", "slots_across_cards", "slots_across_processes",
+            "limbs_across_cards", "collectives")
+_SLOT_BYTES = 12  # an int64 bin and a float32 identity
+
+
+def _to(t, dev):
+    """``t`` on ``dev``: a copy between cards, or to one, waits for no
+    device; a copy to the host is complete on return (a gloo collective
+    reads it at once)."""
+    return t.to(dev, non_blocking=dev.type == "cuda")
 
 
 def _toupper(frags):
@@ -256,24 +276,49 @@ class ShardedSession:
             (dev, sh): index_to_device(sidx, dev, sh)
             for dev, sh in dict.fromkeys((dev, sh) for _, sh, dev in self._cells)
         }
-        # cells' outputs merge on one device; across processes through the
-        # collective's device (the CPU for gloo)
-        if self.mesh.distributed and torch.distributed.get_backend() != "nccl":
+        # each shard's home: the device and rank of its cell (0, sh), where
+        # its data rows' slots meet and it is folded; this process folds
+        # the shards it is home of
+        self._home_dev = self.mesh.devices[0]
+        self._homes = [sh for sh in range(self.n_shard) if self.mesh.ranks[0][sh] == self.mesh.rank]
+        # the limbs and flags meet on one device: the home of shard 0, or
+        # across processes the collectives' device (the CPU for gloo)
+        if not self.mesh.distributed:
+            self._merge_dev = self._home_dev[0]
+        elif torch.distributed.get_backend() != "nccl":
             self._merge_dev = torch.device("cpu")
         elif self._devices:
             self._merge_dev = self._devices[0]
         else:
             self._merge_dev = torch.device("cuda", torch.cuda.current_device())
-        self._s2g = torch.from_numpy(sidx.seq_to_genome).to(self._merge_dev)
-        # each shard's dense (query genome, contig, bin) bins: a scratch that
-        # every fold leaves -inf.  None of q_capacity, C and bin_max
-        # escalates.  A pass stopped inside a fold leaves it dirty, and the
-        # next pass fills it again
+        if self.mesh.distributed:
+            # every rank gives the all_gather the limbs of as many shards
+            # as the rank of most homes; gathered row r * H + j is shard
+            # homes[r][j]
+            homes = [[sh for sh in range(self.n_shard) if self.mesh.ranks[0][sh] == r]
+                     for r in range(torch.distributed.get_world_size())]
+            self._gather_rows = max(len(h) for h in homes)
+            self._gather_order = torch.tensor(
+                [r * self._gather_rows + h.index(sh)
+                 for sh in range(self.n_shard) for r, h in enumerate(homes) if sh in h],
+                dtype=torch.int64, device=self._merge_dev,
+            )
+        self._s2g = {
+            sh: torch.from_numpy(sidx.seq_to_genome[sh]).to(self._home_dev[sh]) for sh in self._homes
+        }
+        # each home shard's dense (query genome, contig, bin) bins on its
+        # home device: a scratch that every fold leaves -inf.  None of
+        # q_capacity, C and bin_max escalates.  A pass stopped inside a
+        # fold leaves them dirty, and the next pass fills them again
         n_bins = self.q_capacity * sidx.seq_to_genome.shape[1] * self.budgets["bin_max"]
-        self._scratch = torch.full(
-            (self.n_shard, n_bins), -np.inf, dtype=torch.float32, device=self._merge_dev
-        )
+        self._scratch = {
+            sh: torch.full((n_bins,), -np.inf, dtype=torch.float32, device=self._home_dev[sh])
+            for sh in self._homes
+        }
         self._scratch_dirty = False
+        # the bytes the last pass moved between this process's devices and
+        # to or from other processes (`_merge`, `_pass`)
+        self.traffic = dict.fromkeys(_TRAFFIC, 0)
         # pinned host staging needs CUDA; a CPU-only mesh stages in plain
         # host tensors, which its cells read in place
         self._pinned = any(dev.type == "cuda" for dev in self._devices)
@@ -419,9 +464,13 @@ class ShardedSession:
     def _pass(self, frags, frag_qg, m_values, slot: int | None = None, toupper: bool = True):
         """Enqueue one pass of a staged ``(Fcap, l + 4)`` fragment block on
         every local cell (each device uppercases its rows unless
-        ``toupper`` is false), merge the cells and fold each shard.  Returns
-        the pass's outputs packed in one int64 tensor on the merge device,
-        `_unpack` lays them out; nothing here waits for a device."""
+        ``toupper`` is false), merge the cells, fold each shard this
+        process is home of on its home device and gather every shard's
+        limbs and the flags.  Returns the pass's outputs packed in one int64
+        tensor on the merge device, `_unpack` lays them out; nothing here
+        waits for a device.  A copy between cards is ordered after the
+        producer's current stream and before the consumer's (PyTorch's
+        cross-device copy), so the read-back event follows every fold."""
         params = self.params
         b = self.budgets
         sidx = self.sidx
@@ -456,52 +505,94 @@ class ShardedSession:
             )
         slots, flags = self._merge(cells, Fd * b["ivmax"])
 
-        G = self.q_capacity * self._g_max
-        packed = torch.empty(
-            (3 * self.n_shard * G + _N_FLAGS,), dtype=torch.int64, device=self._merge_dev
-        )
-        limbs = packed[:-_N_FLAGS].view(3, self.n_shard, self.q_capacity, self._g_max)
+        q, g = self.q_capacity, self._g_max
+        merge = self._merge_dev
+        packed = torch.empty((3 * self.n_shard * q * g + _N_FLAGS,), dtype=torch.int64, device=merge)
+        limbs = packed[:-_N_FLAGS].view(3, self.n_shard, q, g)
+        if self.mesh.distributed:  # this process's share of the all_gather
+            mine = torch.empty((self._gather_rows, 3, q, g), dtype=torch.int64, device=merge)
+            outs = dict(zip(self._homes, mine))
+        else:
+            outs = {sh: limbs[:, sh] for sh in self._homes}
         if self._scratch_dirty:
-            self._scratch.fill_(-np.inf)
+            for scratch in self._scratch.values():
+                scratch.fill_(-np.inf)
         self._scratch_dirty = True
-        for sh in range(self.n_shard):
-            merged = (flags, packed[-_N_FLAGS:]) if sh == 0 else (None, None)
-            _fold(*slots[sh], self._scratch[sh], self._s2g[sh], self.q_capacity, b["bin_max"],
-                  self._g_max, limbs[:, sh], *merged)
+        for sh in self._homes:
+            home = self._home_dev[sh]
+            out = outs[sh] if home == merge else torch.empty((3, q, g), dtype=torch.int64,
+                                                             device=home)
+            # in one process the flags' rows merge in shard 0's fold, on
+            # the merge device
+            merged = (flags, packed[-_N_FLAGS:]) if sh == 0 and not self.mesh.distributed else ()
+            _fold(*slots[sh], self._scratch[sh], self._s2g[sh], q, b["bin_max"], g, out, *merged)
+            if out is not outs[sh]:
+                outs[sh].copy_(out, non_blocking=merge.type == "cuda")
+                self.traffic["limbs_across_cards"] += out.numel() * out.element_size()
         self._scratch_dirty = False
+        if self.mesh.distributed:
+            dist = torch.distributed
+            gathered = mine.new_empty((dist.get_world_size() * self._gather_rows, 3, q, g))
+            dist.all_gather_into_tensor(gathered, mine)
+            limbs.copy_(gathered.index_select(0, self._gather_order).transpose(0, 1))
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+            packed[-_N_FLAGS:].copy_(flags)
+            self.traffic["collectives"] += (gathered.numel() * gathered.element_size()
+                                            + flags.numel() * flags.element_size())
         return packed
 
     def _merge(self, cells, n_slots: int):
-        """The cells' outputs ``{(d, sh): ((slot_bin, slot_ident), flags)}``
-        on the merge device: each shard's slots over its data rows, and the
-        flags' rows (int32, ``(6,)`` or ``(rows, 6)``).  Across processes
-        every cell's ``n_slots`` slots and every process's flags gather to
-        every process, the slots of cells a process does not run empty
-        (bin ``-1``).  Nothing here waits for a device."""
-        dev = self._merge_dev
+        """This process's part of the data-axis merge of the cells' outputs
+        ``{(d, sh): ((slot_bin, slot_ident), flags)}``: ``({sh: (slot_bin,
+        slot_ident)}, flags)``, the slots of each shard this process is
+        home of over all its data rows, on its home device, and the flags.
+
+        A data row's ``n_slots`` slots cross a card only when it lies on
+        another device than its home, and a process only when another
+        process runs it: each process sends them to the home process, both
+        sides in the mesh's order, in one ``batch_isend_irecv`` (only the
+        processes that hold such rows take part, and a pair that sends
+        both ways cannot deadlock).  The flags are the rows of the cells
+        (int32, ``(6,)`` or ``(cells, 6)``) on the merge device, or across
+        processes their max over this process's cells.  Nothing here waits
+        for a device.  Fills `traffic`'s slot entries."""
+        self.traffic = dict.fromkeys(_TRAFFIC, 0)
+        self.traffic["cell_slots"] = n_slots * _SLOT_BYTES
+        me, ranks = self.mesh.rank, self.mesh.ranks
+        merge = self._merge_dev
+        parts = {sh: [] for sh in self._homes}
+        ops = []
+        for d in range(self.n_data):
+            for sh in range(self.n_shard):
+                owner, home = ranks[d][sh], ranks[0][sh]
+                if owner == me == home:
+                    cell_slots = cells[d, sh][0]
+                    if cell_slots[0].device != self._home_dev[sh]:
+                        self.traffic["slots_across_cards"] += n_slots * _SLOT_BYTES
+                    parts[sh].append(cell_slots)
+                elif owner == me:
+                    ops += [torch.distributed.P2POp(torch.distributed.isend, _to(t, merge), home)
+                            for t in cells[d, sh][0]]
+                elif home == me:
+                    bufs = (torch.empty(n_slots, dtype=torch.int64, device=merge),
+                            torch.empty(n_slots, dtype=torch.float32, device=merge))
+                    ops += [torch.distributed.P2POp(torch.distributed.irecv, t, owner)
+                            for t in bufs]
+                    parts[sh].append(bufs)
+        if ops:
+            self.traffic["slots_across_processes"] = len(ops) // 2 * n_slots * _SLOT_BYTES
+            for work in torch.distributed.batch_isend_irecv(ops):
+                work.wait()
+        slots = {}
+        for sh, rows in parts.items():
+            rows = [[_to(t, self._home_dev[sh]) for t in row] for row in rows]
+            slots[sh] = rows[0] if len(rows) == 1 else [torch.cat(c) for c in zip(*rows)]
         if self.mesh.distributed:
-            shape = (self.n_data, self.n_shard, n_slots)
-            bins = torch.full(shape, -1, dtype=torch.int64, device=dev)
-            idents = torch.zeros(shape, dtype=torch.float32, device=dev)
-            flags = torch.zeros(_N_FLAGS, dtype=torch.int32, device=dev)
-            for (d, sh), ((slot_bin, slot_ident), cell_flags) in cells.items():
-                bins[d, sh] = slot_bin
-                idents[d, sh] = slot_ident
-                torch.maximum(flags, cell_flags.to(dev), out=flags)
-            world = torch.distributed.get_world_size()
-            parts = []
-            for t in (bins, idents, flags):
-                parts.append([torch.empty_like(t) for _ in range(world)])
-                torch.distributed.all_gather(parts[-1], t)
-            bins, idents, flags = (torch.stack(p) for p in parts)
-            return [(bins[:, :, sh].reshape(-1), idents[:, :, sh].reshape(-1))
-                    for sh in range(self.n_shard)], flags
-        by_shard = [[] for _ in range(self.n_shard)]
-        for (_, sh), (slots, _) in cells.items():
-            by_shard[sh].append([t.to(dev, non_blocking=True) for t in slots])
-        slots = [parts[0] if len(parts) == 1 else [torch.cat(c) for c in zip(*parts)]
-                 for parts in by_shard]
-        flags = [f.to(dev, non_blocking=True) for _, f in cells.values()]
+            flags = torch.zeros(_N_FLAGS, dtype=torch.int32, device=merge)
+            for _, cell_flags in cells.values():
+                torch.maximum(flags, _to(cell_flags, merge), out=flags)
+            return slots, flags
+        flags = [_to(f, merge) for _, f in cells.values()]
         return slots, flags[0] if len(flags) == 1 else torch.stack(flags)
 
     def _read_back(self, packed):

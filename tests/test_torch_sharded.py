@@ -212,8 +212,15 @@ def test_scratch_stays_neg_inf_across_passes(panel, escalated, monkeypatch, wher
     _, want_hits, _, want = escalated
     session = ShardedSession(mapper, _cpu_mesh(2, 2), **_TINY)
 
+    def all_neg_inf():
+        # one scratch a shard, on the device of its home cell (0, sh)
+        assert sorted(session._scratch) == list(range(session.n_shard))
+        for sh, scratch in session._scratch.items():
+            assert scratch.device == session.mesh.devices[0][sh]
+        return all(bool(torch.isneginf(s).all()) for s in session._scratch.values())
+
     def clean():
-        assert not session._scratch_dirty and bool(torch.isneginf(session._scratch).all())
+        assert not session._scratch_dirty and all_neg_inf()
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -242,12 +249,56 @@ def test_scratch_stays_neg_inf_across_passes(panel, escalated, monkeypatch, wher
     with pytest.raises(RuntimeError, match="stopped"):
         session.query_many(batch[1:])
     assert session._scratch_dirty
-    assert bool(torch.isneginf(session._scratch).all()) == (where == "after_cgi")
+    assert all_neg_inf() == (where == "after_cgi")
     monkeypatch.setattr(S, "_fold", fold)
     hits, got = _folds(session, batch)
     _same_folds(got, want)
     assert [_key(h) for h in hits] == [_key(h) for h in want_hits] == [_key(h) for h in host]
     clean()
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_each_shard_folds_once_a_pass_at_home(panel, monkeypatch, shape):
+    """Every pass folds each shard once (one `fold_bins` call), on the
+    device of its home cell ``(0, sh)``, and only there; the slots of a
+    mesh on one device move nowhere, and one process gathers nothing."""
+    mapper, queries, host = panel
+    from pyfastani_tpu_torch import session as S
+    from pyfastani_tpu_torch.ops import cgi
+
+    session = ShardedSession(mapper, _cpu_mesh(*shape), q_capacity=1, frag_capacity=256,
+                             **_BUDGETS)
+    assert session._homes == list(range(shape[1]))
+    folds, passes = [], []
+    fold, run_pass = S._fold, session._pass
+
+    def recording_fold(slot_bin, slot_ident, scratch, *rest):
+        [sh] = [s for s, t in session._scratch.items() if t is scratch]
+        folds.append((len(passes), sh, scratch.device, slot_bin.device))
+        return fold(slot_bin, slot_ident, scratch, *rest)
+
+    def recording_pass(*args, **kwargs):
+        out = run_pass(*args, **kwargs)
+        passes.append(dict(session.traffic))
+        return out
+
+    monkeypatch.setattr(S, "_fold", recording_fold)
+    monkeypatch.setattr(session, "_pass", recording_pass)
+    calls = cgi.fold_bins_reference_calls
+    hits = session.query_many([[q] for q in queries])
+    assert [_key(h) for h in hits] == [_key(h) for h in host]
+    assert len(passes) == session.stats["dispatches"] == len(queries)
+    assert cgi.fold_bins_reference_calls - calls == len(folds) == len(passes) * shape[1]
+    assert [(p, sh) for p, sh, _, _ in folds] == [
+        (p, sh) for p in range(len(passes)) for sh in range(shape[1])
+    ]
+    mesh = session.mesh
+    assert all(a == b == mesh.devices[0][sh] for _, sh, a, b in folds)
+    for t in passes:
+        assert t["cell_slots"] > 0
+        assert {k: v for k, v in t.items() if k != "cell_slots"} == dict.fromkeys(
+            ("slots_across_cards", "slots_across_processes", "limbs_across_cards",
+             "collectives"), 0)
 
 
 def test_multi_group_batch_equals_one_group_per_query():
